@@ -1,21 +1,23 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--edges E]
+    python3 chip_smoke.py [--edges E] [--ell-inserts I]
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. device: the card's name, count, and ``nvidia-smi`` name and power
    limit. Fails without CUDA, and when run outside a checkout of the repo.
-2. build: kernel B1 (``src/repro_torch/csrc/maxmin.cu``) with nvcc for
-   sm_90a; prints the build seconds and ptxas' registers, shared memory
-   and spills.
-3. kernel: B1 against its plain PyTorch version on the card with
-   ``torch.equal`` (tolerance 0: max and min never reassociate) on the
-   test shapes in float32 and float16 and on the main path's shape; then
-   CUDA-event times at the main path's (J, N) and at N=4096, beside the
-   bound (the larger of bytes over 3.35 TB/s and min/max operations over
-   67 TFLOP/s, the H100 SXM's published rates).
+2. build: kernels B1 (``src/repro_torch/csrc/maxmin.cu``) and B5
+   (``src/repro_torch/csrc/ell.cu``) with nvcc for sm_90a, one nvcc each,
+   started together; prints the build seconds and ptxas' registers,
+   shared memory and spills.
+3. kernel: B1 and B5 against their plain PyTorch versions on the card
+   with ``torch.equal`` (tolerance 0: max and min never reassociate) on
+   the test shapes (B1 also in float16), B1 at the dense path's shape and
+   at the frontier's skinny (J=48, m in {4, 32}, 2048, 2048) slabs; then
+   CUDA-event times of B1 at the dense path's (J, N) and at N=4096,
+   beside the bound (the larger of bytes over 3.35 TB/s and min/max
+   operations over 67 TFLOP/s, the H100 SXM's published rates).
 4. end to end: ``PersistentQueryService(window=20, slide=2)`` with the 11
    Table-2 queries over the SO labels as one dense group at n_slots=2048,
    each also registered as a reference RAPQ engine, plus simple-path lanes
@@ -28,6 +30,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    was launched once per closure round of the run.
 5. trace: a further short window of the same stream under
    ``torch.profiler``: its top device kernels by time.
+6. end to end, frontier and ELL: ``PersistentQueryService(window=20,
+   slide=2, frontier="auto", frontier_cap=4, adj_layout="ell", ell_cap=2)``
+   with the 11 Table-2 queries as one dense group at n_slots=8192, each
+   also a reference RAPQ engine, fed I insert sgts of
+   ``so_like(n_vertices=8192, rate=50)`` (about 1000 live edges in a 20 s
+   window) with 2% deletions, B=1. Asserts every query's results equal
+   its reference engine's, that B5 was launched once per closure round
+   and B1 never, that the frontier ran and also fell back (dispatches >
+   fallbacks >= 1), that a delete went through the cone, and that the
+   spill ring drained and re-packed.
+7. B5 at the path's shapes: on this run's final operands (the gathered
+   dist rows and the ELL rows of the transition labels), ``torch.equal``
+   against the plain version at the frontier's (J, F, 8192, E) and the
+   dense round's (J, 8192, 8192, E), and CUDA-event times beside the
+   bound, the plain version and the two-call PyTorch yardstick
+   (``torch.minimum`` of the broadcast candidates, then one
+   ``scatter_reduce_(..., "amax")``), which the port never calls.
 
 The last three lines of standard output are the kernels JSON line, the
 ``nvidia-smi`` name/power-limit line, and the ``{"ok": true, ...}`` line.
@@ -58,6 +77,11 @@ SHAPES = [(8, 8, 8), (128, 128, 128), (130, 70, 200), (1, 256, 33),
           (257, 1, 129), (64, 512, 64)]
 ODD_SHAPES = [(3, 4, 40, 40), (5, 16, 33, 33), (2, 1, 7, 19), (7, 23, 5, 64),
               (1, 130, 70, 30)]
+
+# tests/test_torch_gpu.py: B5_CASES (J, M, U, E)
+B5_CASES = [(2, 5, 12, 3), (1, 1, 9, 1), (3, 7, 13, 2), (4, 16, 33, 4),
+            (1, 130, 257, 8), (48, 4, 2048, 2), (6, 300, 700, 5)]
+SKINNY_M = (4, 32)        # frontier rows of B1's skinny slabs
 
 PROFILE_SGTS = 24         # sgts of the traced window after the main run
 CONFLICT_BEFORE_END = 40  # inserts of the main run after the Q3 conflict
@@ -118,6 +142,52 @@ def bound_ms(j: int, m: int, k: int, n: int, itemsize: int = 4):
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def bound_ell_ms(j: int, m: int, u: int, e: int, live_candidates: int):
+    """(bound in ms, "bytes" | "operations") of one ELL gather-contract:
+    d (J, M, U) read and the (J, M, U) output written once, idx/ts
+    (J, U, E) read once, against one min and one max per candidate that
+    this run's data holds (finite d entries times E slots)."""
+    t_bytes = (4 * (j * m * u + j * m * u) + 8 * j * u * e) / PEAK_BYTES
+    t_ops = 2.0 * live_candidates / PEAK_F32_OPS
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def trace_window(torch, run, n_sgts: int, tag: str, top: int = 6) -> None:
+    """Run ``run()`` under ``torch.profiler`` (device activity only:
+    recording every CPU-side op of the host loop tripled the window's wall
+    time) and print the top device kernels by self device time, with the
+    window's total device time and wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_name = {}
+    for ev in prof.key_averages():
+        # device-side events only (kernels, copies, fills)
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", 0.0) or 0.0
+        if dev_us > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + dev_us
+    total = sum(by_name.values()) / 1e3
+    print(f"[{tag}] top device kernels over {n_sgts} traced sgts"
+          f"{'' if by_name else ': the profiler recorded no device time'}; "
+          f"device time {total:.3f} ms in {wall * 1e3:.3f} ms traced wall",
+          flush=True)
+    for key, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"[{tag}]   {us / 1e3:10.3f} ms  {key[:90]}", flush=True)
+
+
+def print_build_log(name: str, info) -> None:
+    for line in str(info["log"]).splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print(f"[build]   {name}: {line.strip()}", flush=True)
+
+
 def time_cuda(torch, fn, reps: int) -> float:
     """Mean ms per call over ``reps`` calls after one warm-up call."""
     fn()
@@ -135,11 +205,14 @@ def time_cuda(torch, fn, reps: int) -> float:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--edges", type=int, default=1024,
-                    help="insert sgts of the end-to-end stream (>= 256)")
+                    help="insert sgts of the dense end-to-end stream (>= 256)")
+    ap.add_argument("--ell-inserts", type=int, default=2048,
+                    help="insert sgts of the frontier + ELL stream (>= 256)")
     args = ap.parse_args()
-    if args.edges < 256:
-        fail("--edges must be at least 256")
-    if not (ROOT / "src" / "repro_torch" / "csrc" / "maxmin.cu").is_file():
+    if args.edges < 256 or args.ell_inserts < 256:
+        fail("--edges and --ell-inserts must be at least 256")
+    if not all((ROOT / "src" / "repro_torch" / "csrc" / f"{k}.cu").is_file()
+               for k in ("maxmin", "ell")):
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from a "
              "checkout of the repo")
     sys.path.insert(0, str(ROOT / "src"))
@@ -160,6 +233,8 @@ def main() -> None:
 
     from repro_torch.core.automaton import compile_query
     from repro_torch.kernels import build
+    from repro_torch.kernels.ell import ell as b5
+    from repro_torch.kernels.ell.ref import ell_gather_contract_ref
     from repro_torch.kernels.maxmin import maxmin as b1
     from repro_torch.kernels.maxmin.ref import maxmin_matmul_fused_ref
     from repro_torch.streaming.generators import so_like, with_deletions
@@ -168,13 +243,16 @@ def main() -> None:
 
     # -- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
-    build.load("maxmin")
-    info = build.BUILD_INFO["maxmin"]
-    print(f"[build] maxmin.cu: {time.perf_counter() - t0:.3f} s "
-          f"(nvcc {info['seconds']:.3f} s) -> {info['path']}", flush=True)
-    for line in str(info["log"]).splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"[build]   {line.strip()}", flush=True)
+    build.build_all(["maxmin", "ell"])   # one nvcc each, started together
+    for name in ("maxmin", "ell"):
+        build.load(name)
+    print(f"[build] maxmin.cu and ell.cu: {time.perf_counter() - t0:.3f} s "
+          "wall", flush=True)
+    for name in ("maxmin", "ell"):
+        info = build.BUILD_INFO[name]
+        print(f"[build] {name}.cu: nvcc {info['seconds']:.3f} s -> "
+              f"{info['path']}", flush=True)
+        print_build_log(name, info)
 
     # -- 3. kernel against its plain version -----------------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -211,6 +289,34 @@ def main() -> None:
             n_checks += 1
     print(f"[kernel] B1 == plain (torch.equal) on {n_checks} test shapes, "
           "float32 and float16", flush=True)
+    for m in SKINNY_M:
+        check(48, m, 2048, 2048, torch.float32)
+    print(f"[kernel] B1 == plain (torch.equal) at the frontier's skinny slabs "
+          f"J=48 m in {SKINNY_M} k=n=2048 float32", flush=True)
+
+    ell_err = 0.0
+
+    def check_b5(d, idx, ts, what: str) -> None:
+        nonlocal ell_err
+        out = b5.ell_gather_contract(d, idx, ts)
+        torch.cuda.synchronize()
+        ref = ell_gather_contract_ref(d, idx, ts)
+        if not torch.equal(out, ref):   # equal means max |err| 0.0 exactly
+            err = (out - ref).abs().masked_fill(out == ref, 0.0)
+            ell_err = max(ell_err, float(err.max()))
+            fail(f"B5 differs from its plain version at {what}: max |err| "
+                 f"{ell_err}")
+
+    for (j, m, u, e) in B5_CASES:
+        d = rand_ts((j, m, u), torch.float32, density=0.4)
+        idx = torch.randint(0, u, (j, u, e), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        idx[:, :, 0] = idx[:, :, -1]                  # duplicate destinations
+        ts = rand_ts((j, u, e), torch.float32, density=0.6)
+        ts[:, : max(1, u // 7)] = float("-inf")       # all-free rows
+        check_b5(d, idx, ts, f"J={j} M={m} U={u} E={e}")
+    print(f"[kernel] B5 == plain (torch.equal) on {len(B5_CASES)} test shapes",
+          flush=True)
 
     # the service's dense group fixes the main path's shapes (J rows, N slots)
     window, slide, n_slots = 20.0, 2.0, 2048
@@ -270,11 +376,14 @@ def main() -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     b1.maxmin_matmul_fused.launches = 0
+    b5.ell_gather_contract.launches = 0
     t0 = time.perf_counter()
     report = svc.ingest(Stream(tuples), record_latency=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = b1.maxmin_matmul_fused.launches
+    if b5.ell_gather_contract.launches:
+        fail("kernel B5 ran on the dense-adjacency path")
     rounds = ex.rounds_total - rounds0
     steps = ex.steps - steps0
     syncs = group.host_syncs - syncs0
@@ -337,29 +446,22 @@ def main() -> None:
           f"fallback, {group.btt.qidx.shape[0]} after", flush=True)
 
     # -- 5. a traced window of the same path -----------------------------------
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    trace_window(torch, lambda: svc.ingest(Stream(tail), record_latency=True),
+                 len(tail), "trace")
 
-    # device activity only: recording every CPU-side op of the host loop
-    # tripled the window's wall time
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        svc.ingest(Stream(tail), record_latency=True)
-        torch.cuda.synchronize()
-    by_name = {}
-    for ev in prof.key_averages():
-        # device-side events only (kernels, copies, fills)
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total", 0.0) or 0.0
-        if dev_us > 0:
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + dev_us
-    print(f"[trace] top device kernels over {len(tail)} traced sgts"
-          f"{'' if by_name else ': the profiler recorded no device time'}",
-          flush=True)
-    for key, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
-        print(f"[trace]   {us / 1e3:10.3f} ms  {key[:90]}", flush=True)
+    del svc, group, ex
+    torch.cuda.empty_cache()
+
+    # -- 6. end to end: frontier + ELL at n_slots=8192 ---------------------------
+    ell = ell_phase(torch, queries, args.ell_inserts, device=None)
+
+    # -- 7. B5 at the path's shapes, on this run's operands ---------------------
+    b5_rows = b5_at_path_shapes(torch, ell, check_b5)
+    print(f"[kernel] B5 == plain (torch.equal) on every shape; max |err| "
+          f"{ell_err}", flush=True)
 
     ms, bms, by, plain = timings[N]
+    e5 = b5_rows["dense"]
     print(json.dumps({"kernels": [{
         "name": "B1 maxmin_fused",
         "route": "cuda",
@@ -372,10 +474,199 @@ def main() -> None:
         "bound_ms": bms,
         "bound_by": by,
         "library_ms": None,
+    }, {
+        "name": "B5 ell_gather_contract",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ell.cu",
+        "replaces": "src/repro/kernels/ell/ell.py:39",
+        "launches": ell["launches"],
+        "max_abs_err": ell_err,
+        "ms": e5["ms"],
+        "plain_ms": e5["plain_ms"],
+        "bound_ms": e5["bound_ms"],
+        "bound_by": e5["bound_by"],
+        "library_ms": e5["library_ms"],
+        "shape": e5["shape"],
     }]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
+
+
+def ell_phase(torch, queries, n_inserts: int, device=None, n_slots: int = 8192):
+    """Phase 6: the frontier + ELL service path at ``n_slots`` against the
+    reference RAPQ engines, with its launch counts, telemetry and checks.
+    ``device`` and ``n_slots`` let the same code rehearse on the CPU at a
+    small size; the script itself runs it on the card at 8192. Returns
+    the group's final operands for phase 7 and the counts."""
+    from repro_torch.kernels.ell import ell as b5
+    from repro_torch.kernels.maxmin import maxmin as b1
+    from repro_torch.streaming.generators import so_like, with_deletions
+    from repro_torch.streaming.service import PersistentQueryService
+    from repro_torch.streaming.stream import Stream
+
+    on_card = device is None
+    window, slide = 20.0, 2.0
+    svc = PersistentQueryService(window=window, slide=slide, frontier="auto",
+                                 frontier_cap=4, adj_layout="ell", ell_cap=2,
+                                 device=device)
+    for name, expr in queries.items():
+        svc.register(name, expr, engine="dense", n_slots=n_slots, batch_size=1)
+        svc.register(f"{name}_ref", expr, engine="reference")
+    group = svc.queries["Q1"]
+    ex = group.executor
+    J, N, K, Q = (group.btt.qidx.shape[0], group.n_slots, group.k, group.q_cap)
+    # n_inserts for the main run, then PROFILE_SGTS more for a traced window
+    all_tuples = list(with_deletions(so_like(
+        n_vertices=n_slots, n_edges=n_inserts + PROFILE_SGTS, seed=7,
+        rate=50.0), ratio=0.02, seed=5))
+    cut = [i for i, s in enumerate(all_tuples) if s.op == "+"][n_inserts]
+    tuples, tail = all_tuples[:cut], all_tuples[cut:]
+    n_del = sum(1 for s in tuples if s.op == "-")
+    print(f"[ell] frontier='auto' F=4, adj_layout='ell' E=2, spill ring "
+          f"{ex.spill_cap}: {Q} lanes, J={J}, K={K}, N={N}; {n_inserts} inserts "
+          f"+ {n_del} deletions = {len(tuples)} sgts over "
+          f"{tuples[-1].ts:.3f} s of stream time", flush=True)
+    rounds0, steps0, syncs0 = ex.rounds_total, ex.steps, group.host_syncs
+    f0 = ex.frontier_stats
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    b1.maxmin_matmul_fused.launches = 0
+    b5.ell_gather_contract.launches = 0
+    t0 = time.perf_counter()
+    report = svc.ingest(Stream(tuples), record_latency=True)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = b5.ell_gather_contract.launches
+    b1_launches = b1.maxmin_matmul_fused.launches
+    rounds = ex.rounds_total - rounds0
+    steps = ex.steps - steps0
+    syncs = group.host_syncs - syncs0
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    fst = {k: (v - f0[k] if k in ("dispatches", "fallbacks", "rows_relaxed",
+                                  "delete_dispatches", "delete_fallbacks",
+                                  "seed_rows", "dense_row_equiv") else v)
+           for k, v in ex.frontier_stats.items()}
+    ast = ex.adjacency_stats
+
+    if b1_launches:
+        fail(f"kernel B1 ran {b1_launches} times on the ELL path")
+    if on_card and (launches <= 0 or launches != rounds):
+        fail(f"B5 launches ({launches}) != closure rounds run ({rounds})")
+    mismatched = [name for name in queries
+                  if svc.results(name) != svc.results(f"{name}_ref")]
+    if mismatched:
+        fail(f"ELL-path results differ from the reference RAPQ for {mismatched}")
+    n_results = {name: len(svc.results(name)) for name in queries}
+    if sum(n_results.values()) == 0:
+        fail("no query produced any result on the ELL path")
+    if not fst["dispatches"] > fst["fallbacks"] >= 1:
+        fail(f"expected frontier dispatches > fallbacks >= 1, got {fst}")
+    if fst["delete_dispatches"] - fst["delete_fallbacks"] < 1:
+        fail(f"no delete went through the cone: {fst}")
+    if ast["spill_drains"] < 1 or ast["repacks"] < 1:
+        fail(f"the spill ring never drained and re-packed: {ast}")
+
+    lat = sorted(svc.stats["Q1"].latencies_us)
+    p50 = lat[len(lat) // 2]
+    p99 = lat[min(int(0.99 * len(lat)), len(lat) - 1)]
+    dense_s = sum(svc.stats["Q1"].latencies_us) / 1e6
+    ref_s = sum(sum(svc.stats[f"{name}_ref"].latencies_us)
+                for name in queries) / 1e6
+    print(f"[ell] {len(tuples)} sgts in {wall:.3f} s = {len(tuples) / wall:.3f} "
+          f"sgts/s; dispatch p50 {p50 / 1e3:.3f} ms, p99 {p99 / 1e3:.3f} ms; "
+          f"slowest five {[round(x / 1e3, 3) for x in lat[-5:]]} ms",
+          flush=True)
+    print(f"[ell] {steps} dispatches, {rounds} closure rounds ({rounds / steps:.3f} "
+          f"per dispatch), host syncs {syncs / steps:.3f} per dispatch; B5 "
+          f"launches {launches} (one per round), B1 launches {b1_launches}",
+          flush=True)
+    print(f"[ell] frontier: {fst['dispatches']} dispatches, {fst['fallbacks']} "
+          f"dense fallbacks ({fst['delete_dispatches']} deletes, "
+          f"{fst['delete_fallbacks']} of them fell back); rows relaxed "
+          f"{fst['rows_relaxed']} = {fst['rows_relaxed'] / max(steps, 1):.3f} per "
+          f"dispatch ({fst['dense_row_equiv']} for the dense loop); seed rows "
+          f"{fst['seed_rows']}, largest lane frontier {fst['max_lane_rows']}; "
+          f"final frontier_cap {fst['cap']}", flush=True)
+    print(f"[ell] adjacency: final ell_cap {ast['ell_cap']}, spill ring "
+          f"{ast['spill_cap']}, {ast['spill_drains']} drains, {ast['repacks']} "
+          f"re-packs, {ast['live_edges']} live edges at the last re-pack, "
+          f"{ast['adj_bytes']} bytes", flush=True)
+    print(f"[ell] wall split (host clock): dense-group dispatches {dense_s:.3f} s, "
+          f"11 reference RAPQ engines {ref_s:.3f} s, rest "
+          f"{wall - dense_s - ref_s:.3f} s; peak device memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB)", flush=True)
+    print(f"[ell] results per query: {n_results}; deletions {report.deletions}; "
+          "results == reference RAPQ for all 11 queries", flush=True)
+
+    if on_card:
+        trace_window(torch, lambda: svc.ingest(Stream(tail), record_latency=True),
+                     len(tail), "ell-trace", top=10)
+
+    # the final operands of a round, for phase 7
+    a = ex.arrays
+    btt = group.btt
+    d = a.dist[btt.qidx, :, :, btt.src].contiguous()          # (J, N, N)
+    labs = btt.lab
+    idx, ts = a.adj.idx[labs].contiguous(), a.adj.ts[labs].contiguous()
+    frontier_cap = ex.frontier_cap
+    del svc, group, ex, a
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"launches": launches, "d": d, "idx": idx, "ts": ts,
+            "frontier_cap": frontier_cap}
+
+
+def b5_at_path_shapes(torch, ell, check_b5):
+    """Phase 7: B5 against its plain version and timed at the frontier's
+    (J, F, N, E) (the F rows of each transition's slab with the most
+    finite entries) and the dense round's (J, N, N, E), on phase 6's final
+    operands, beside the bound, the plain version and the two-call PyTorch
+    yardstick. Frees the operands."""
+    from repro_torch.kernels.ell import ell as b5
+    from repro_torch.kernels.ell.ref import ell_gather_contract_ref
+
+    d, idx, ts = ell.pop("d"), ell.pop("idx"), ell.pop("ts")
+    j, n, _ = d.shape
+    e = idx.shape[2]
+    f = ell["frontier_cap"]
+    live = (d > float("-inf")).sum(dim=2)                     # (J, N)
+    top = torch.topk(live, f, dim=1).indices                  # (J, F)
+    d_f = d.gather(1, top[:, :, None].expand(j, f, n)).contiguous()
+    idx_l = idx.long().reshape(j, 1, n * e)
+
+    def yardstick(dd):
+        cand = torch.minimum(dd[:, :, :, None], ts[:, None])          # call 1
+        out = torch.full(dd.shape, float("-inf"), device=dd.device)
+        return out.scatter_reduce_(2, idx_l.expand(-1, dd.shape[1], -1),  # call 2
+                                   cand.reshape(j, dd.shape[1], n * e),
+                                   "amax", include_self=True)
+
+    rows = {}
+    for tag, dd, reps in (("frontier", d_f, 20), ("dense", d, 3)):
+        m = dd.shape[1]
+        check_b5(dd, idx, ts, f"{tag} shape J={j} M={m} U={n} E={e}")
+        if not torch.equal(yardstick(dd), b5.ell_gather_contract(dd, idx, ts)):
+            fail(f"the two-call yardstick differs from B5 at the {tag} shape")
+        torch.cuda.synchronize()
+        ms = time_cuda(torch, lambda: b5.ell_gather_contract(dd, idx, ts), reps)
+        plain = time_cuda(torch, lambda: ell_gather_contract_ref(dd, idx, ts),
+                          max(1, reps // 3))
+        lib = time_cuda(torch, lambda: yardstick(dd), max(1, reps // 3))
+        cands = int((dd > float("-inf")).sum()) * e
+        bms, by = bound_ell_ms(j, m, n, e, cands)
+        rows[tag] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                     "bound_ms": bms, "bound_by": by, "shape": [j, m, n, e]}
+        print(f"[kernel] B5 {tag} shape J={j} M={m} U={n} E={e} "
+              f"({cands} live candidates): {ms:.3f} ms, bound {bms:.3f} ms "
+              f"({by}), {100 * bms / ms:.1f}% of bound; plain {plain:.3f} ms; "
+              f"two-call yardstick {lib:.3f} ms", flush=True)
+        torch.cuda.empty_cache()
+    del d, d_f, idx, ts
+    torch.cuda.empty_cache()
+    return rows
 
 
 if __name__ == "__main__":

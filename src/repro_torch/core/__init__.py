@@ -1,11 +1,12 @@
 """Core of the port: queries, the batched dense engine and its executor.
 
-Public API (the dense, frontier-off slice of ``repro.core``):
+Public API (the dense-dist slice of ``repro.core``: dense or ELL
+adjacency, frontier off, on or auto):
     compile_query(expr)            -- regex -> minimal DFA (+ RSPQ metadata)
     RAPQ / RSPQ                    -- paper-faithful pointer engines (oracle)
     BatchedDenseRPQEngine          -- Q queries, one shared-adjacency step
     DenseRPQEngine                 -- the Q=1 view
-    resolve_backend                -- "cuda" (kernel B1, default) | "plain"
+    resolve_backend                -- "cuda" (kernels B1/B5, default) | "plain"
     carry_reference_state          -- load a JAX engine's exported state
 """
 from .automaton import DFA, compile_query

@@ -1,12 +1,16 @@
 """Contraction backends: the closure round's contraction as an object.
 
 The counterpart of ``repro.core.backend`` (its ``ContractionBackend``
-hooks, lines 76-262), trimmed to what the dense round needs:
+hooks, lines 76-262), trimmed to what the dense and ELL rounds need:
 
   * :meth:`Backend.contract_rows` — batched max-min over gathered
-    transition rows, ``d_s (J, N, N)[x, u] x a_l (J, N, N)[u, v]``;
+    transition rows, ``d_s (J, M, N)[x, u] x a_l (J, N, N)[u, v]``;
   * :meth:`Backend.contract_batched` — the dense round's gather, contract
     and row masking;
+  * :meth:`Backend.contract_rows_ell` / :meth:`Backend.contract_batched_ell`
+    — the same against padded-ELL adjacency rows (kernel B5 on the card),
+    with the spill ring folded in plain PyTorch (:meth:`Backend._fold_spill`,
+    which the reference also keeps outside its kernel);
   * :meth:`Backend.prepare_state` / :meth:`Backend.decode_state` — the
     operand representation at the dispatch boundary (identity here: both
     backends work on float32 timestamps);
@@ -17,9 +21,10 @@ Two backends, both bit-identical (max and min never reassociate):
 ``"plain"`` (:class:`PlainBackend`)
     The chunked plain PyTorch product — the counterpart of ``JnpBackend``.
 ``"cuda"`` (:class:`KernelBackend`, the default)
-    Kernel B1, the hand-written Hopper max-min kernel — the counterpart of
-    ``PallasBackend``. One launch per round covers every transition row.
-    On CPU tensors the kernel's wrapper takes its plain version.
+    Kernels B1 (dense adjacency) and B5 (ELL adjacency), written by hand
+    for Hopper — the counterpart of ``PallasBackend``. One launch per
+    round covers every transition row. On CPU tensors the kernels'
+    wrappers take their plain versions.
 
 ``"mxu_bucket"`` (the level-quantized tensor-core mode) is not yet ported.
 """
@@ -29,8 +34,11 @@ from typing import Dict, Optional, Union
 
 import torch
 
+from ..kernels.ell.ell import ell_gather_contract
+from ..kernels.ell.ref import ell_gather_contract_ref
 from ..kernels.maxmin.maxmin import maxmin_matmul_fused
 from ..kernels.maxmin.ref import maxmin_matmul_fused_ref
+from .sparse_adj import EllAdjacency
 
 NEG_INF = float("-inf")
 
@@ -93,6 +101,48 @@ class Backend:
         del d_s, a_l
         return contrib.masked_fill_(~mask[:, None, None], self.zero)
 
+    # -- ELL (blocked-sparse adjacency) contraction --------------------------
+    #
+    # The ``adj_layout="ell"`` axis: the same contractions with an
+    # :class:`~repro_torch.core.sparse_adj.EllAdjacency` operand. Max and
+    # min never reassociate and free slots fold to -inf, so every variant
+    # is bit-identical to the dense hook on ``ell_to_dense(adj)``.
+
+    def _gather_contract(self, d, idx, ts) -> torch.Tensor:
+        """d (J, M, U) x ELL rows idx/ts (J, U, E) -> (J, M, U)."""
+        raise NotImplementedError
+
+    def _fold_spill(self, contrib, d_s, ell: EllAdjacency, labs):
+        """Fold the spill ring into a gather-contract result in place: for
+        ring entries on transition j's label, ``contrib[j, :, dst] max=
+        min(d_s[j, :, src], spill_ts)``. Free ring entries carry -inf and
+        annihilate."""
+        j, m, _ = contrib.shape
+        eff = torch.where(ell.spill_lab.long()[None, :] == labs[:, None],
+                          ell.spill_ts[None, :], self.zero)          # (J, S)
+        d_sp = d_s.index_select(2, ell.spill_src.long())             # (J, M, S)
+        cand = torch.minimum(d_sp, eff[:, None, :].to(d_s.dtype))
+        dst = ell.spill_dst.long()[None, None, :].expand(cand.shape)
+        return contrib.scatter_reduce_(2, dst, cand, "amax", include_self=True)
+
+    def contract_rows_ell(self, d_s, ell: EllAdjacency, labs) -> torch.Tensor:
+        """Batched max-min over u against ELL rows: d_s (J, M, N)[x, u] x
+        the per-label slot rows of ``ell`` -> (J, M, N)[x, v], O(M*N*E)
+        work instead of the dense O(M*N*N)."""
+        labs = labs.long()
+        contrib = self._gather_contract(d_s.contiguous(), ell.idx[labs],
+                                        ell.ts[labs])
+        return self._fold_spill(contrib, d_s, ell, labs)
+
+    def contract_batched_ell(self, dist, ell: EllAdjacency, btt,
+                             mask) -> torch.Tensor:
+        """ELL twin of :meth:`contract_batched` (same gather of dist, same
+        masking contract)."""
+        d_s = dist[btt.qidx, :, :, btt.src]           # (J, N, N) [x, u]
+        contrib = self.contract_rows_ell(d_s, ell, btt.lab)
+        del d_s
+        return contrib.masked_fill_(~mask[:, None, None], self.zero)
+
 
 class PlainBackend(Backend):
     """Chunked plain PyTorch (max, min) contraction — the oracle."""
@@ -102,15 +152,22 @@ class PlainBackend(Backend):
     def contract_rows(self, d_s, a_l):
         return maxmin_matmul_fused_ref(d_s, a_l)
 
+    def _gather_contract(self, d, idx, ts):
+        return ell_gather_contract_ref(d, idx, ts)
+
 
 class KernelBackend(Backend):
-    """Kernel B1 (``repro_torch/csrc/maxmin.cu``): one launch per round
-    for all J transition rows; bit-identical to :class:`PlainBackend`."""
+    """Kernels B1 (``repro_torch/csrc/maxmin.cu``) and B5
+    (``repro_torch/csrc/ell.cu``): one launch per round for all J
+    transition rows; bit-identical to :class:`PlainBackend`."""
 
     name = "cuda"
 
     def contract_rows(self, d_s, a_l):
         return maxmin_matmul_fused(d_s, a_l)
+
+    def _gather_contract(self, d, idx, ts):
+        return ell_gather_contract(d, idx, ts)
 
 
 BackendLike = Union[None, str, Backend]

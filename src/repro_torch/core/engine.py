@@ -1,5 +1,6 @@
 """Dense streaming RPQ engine, multi-query batched — the counterpart of
-``repro.core.engine`` for the dense layouts with ``frontier="off"``.
+``repro.core.engine`` for the dense dist layout, with the dense or the
+padded-ELL adjacency and the frontier-restricted ingest and deletion.
 
 Q persistent queries share ONE adjacency over the union label alphabet and
 step as one dispatch per micro-batch; the query set is live (queries
@@ -8,11 +9,13 @@ orchestration — vertex interning, query lifecycle, result decoding, state
 export — and everything device-facing lives behind the executor
 (:mod:`repro_torch.core.executor`):
 
-    stream -> service -> engine -> executor -> semiring rounds -> kernel B1
+    stream -> service -> engine -> executor -> semiring rounds -> kernels
+    (B1 over a dense adjacency, B5 over an ELL one)
 
 State (torch tensors on the executor's device; capacities grow at
 runtime, append-only):
     adj     (L, N, N)    f32   newest edge timestamp per (label, u, v)
+                               (or its padded-ELL form, sparse_adj.py)
     dist    (Q, N, N, K) f32   per-query bottleneck closure D[q, x, v, s]
     emitted (Q, N, N)    bool  pairs already reported per query
     now     ()           f32   stream clock (every event advances it)
@@ -151,8 +154,10 @@ class BatchedDenseRPQEngine:
     name to its lane.
 
     ``device=None`` runs on the CUDA card (and raises without one);
-    ``backend=None`` is kernel B1. The frontier and sparse-layout options
-    keep the JAX signature and raise for any value but the default."""
+    ``backend=None`` is the kernel backend (B1 on a dense adjacency, B5 on
+    an ELL one). ``frontier`` ("off" | "on" | "auto") and ``adj_layout``
+    ("dense" | "ell") configure the default executor as in the JAX
+    package; ``dist_layout="row_sparse"`` is not ported yet and raises."""
 
     def __init__(
         self,
@@ -180,8 +185,12 @@ class BatchedDenseRPQEngine:
             raise ValueError(f"duplicate query names: {names}")
         check_ported(frontier=frontier, adj_layout=adj_layout,
                      dist_layout=dist_layout)
+        # frontier and layout kwargs configure the default executor only;
+        # an explicit executor instance arrives already configured
         self.executor = executor if executor is not None else LocalExecutor(
-            backend, device=device)
+            backend, frontier=frontier, frontier_cap=frontier_cap,
+            adj_layout=adj_layout, ell_cap=ell_cap, dist_layout=dist_layout,
+            dist_cap=dist_cap, device=device)
         self.device = self.executor.device
         self.backend = self.executor.backend
         self.lane_specs: List[Optional[RegisteredQuery]] = list(queries)
@@ -813,8 +822,19 @@ class DenseRPQEngine(BatchedDenseRPQEngine):
 
     @property
     def arrays(self) -> EngineArrays:
+        """The Q=1 state with the adjacency as the canonical dense slab,
+        whatever the layout."""
         b = self.executor.arrays
-        return EngineArrays(b.adj, b.dist[0], b.emitted[0], b.now)
+        return EngineArrays(self.executor.dense_adj(), b.dist[0],
+                            b.emitted[0], b.now)
+
+    @arrays.setter
+    def arrays(self, a: EngineArrays) -> None:
+        adj = a.adj
+        if self.executor.adj_layout == "ell":
+            adj = self.executor.pack_adj(device_get(torch.as_tensor(adj)))
+        self.executor.set_arrays(BatchedEngineArrays(
+            adj, a.dist[None], a.emitted[None], a.now))
 
     @property
     def results(self) -> Set[Pair]:

@@ -1,28 +1,36 @@
 """Executor layer: everything device-facing of the batched dense engine —
-the counterpart of ``repro.core.executor`` for the dense layouts with
-``frontier="off"``.
+the counterpart of ``repro.core.executor`` for the dense dist layout, with
+the dense or the padded-ELL adjacency and ``frontier`` off, on or auto.
 
 The engine (:mod:`repro_torch.core.engine`) is pure orchestration. The
 device state (:class:`BatchedEngineArrays`, torch tensors on one device)
 and every dispatch over it live behind :class:`Executor`:
 
-    ingest_batch / delete_batch   one dispatch per micro-batch
+    ingest_batch / delete_batch   one dispatch per micro-batch (dense or
+                                  frontier-restricted; cone-seeded deletes)
     relax                         closure to fixpoint in place
     emit                          per-query window-valid pairs (device)
     arrays / place / grow         state access, (re)placement, growth
     expire / clear_slots / ...    maintenance
 
 The step functions (:func:`apply_batch`, :func:`emit_new`, :func:`_ingest`,
-:func:`_delete`, :func:`_expire`, :func:`_clear_slots`) keep the JAX
-package's names. They update the state tensors in place where the JAX
-versions donate their input (``donate_argnums``): at N=2048 every copy of
-dist is 0.8 GB.
+:func:`_ingest_frontier`, :func:`_delete`, :func:`_delete_frontier`,
+:func:`_expire`, :func:`_clear_slots`) keep the JAX package's names. They
+update the dense state tensors in place where the JAX versions donate their
+input (``donate_argnums``): at N=2048 every copy of dist is 0.8 GB. The
+ELL adjacency (:mod:`repro_torch.core.sparse_adj`) is small and its
+mutations return a new state.
 
 Round accounting lives here too: ``rounds_total``, ``query_rounds_total``
-and ``unmasked_query_rounds_total`` as in the JAX executor (the per-query
-counts stay on the device and are read lazily), plus ``host_syncs``: the
-closure loop's per-round reads of the changed flags, which the JAX
-version does not need because its loop runs on the device.
+and ``unmasked_query_rounds_total`` as in the JAX executor, and the
+frontier telemetry (``frontier_stats``) whose ``"auto"`` capacity growth
+reads it. Counts queue per dispatch and are folded in at the JAX
+executor's cadence — every 64 pending dispatches under ``"auto"``, every
+256 otherwise, and whenever a counter is read — so capacity growth lands
+on the same dispatch as in the reference. ``host_syncs`` counts the
+blocking reads the JAX version does not need because its loops and its
+fallback choice run on the device: one per closure round, plus one per
+frontier dispatch for the fallback decision.
 """
 from __future__ import annotations
 
@@ -33,7 +41,26 @@ import torch
 
 from ..device import DeviceLike, device_get, resolve_device
 from .contraction import Backend, BackendLike, resolve_backend
-from .semiring import NEG_INF, BatchedTransitionTable, _closure, batched_valid_pairs
+from .semiring import (
+    NEG_INF,
+    BatchedTransitionTable,
+    _closure,
+    _frontier,
+    batched_valid_pairs,
+)
+from .sparse_adj import (
+    EllAdjacency,
+    ell_clear_slots,
+    ell_delete,
+    ell_expire,
+    ell_incident,
+    ell_insert,
+    ell_max_degree,
+    ell_to_dense,
+    from_numpy,
+    pack_ell,
+    pack_ell_dense,
+)
 
 FRONTIER_MODES = ("off", "on", "auto")
 ADJ_LAYOUTS = ("dense", "ell")
@@ -42,30 +69,34 @@ DIST_LAYOUTS = ("dense", "row_sparse")
 #: options of the JAX executor the port does not run yet, with the
 #: ROADMAP item that brings each
 _NOT_PORTED = {
-    "frontier": ("off", "ROADMAP A6 (frontier-restricted ingest)"),
-    "adj_layout": ("dense", "ROADMAP A8 (ELL adjacency)"),
     "dist_layout": ("dense", "ROADMAP A9 (row-sparse dist)"),
 }
 
 
 def check_ported(**options) -> None:
-    """Raise for an executor option whose non-default value is not ported
-    (and for values the JAX package does not know either)."""
+    """Raise ``ValueError`` for an executor option value the JAX package
+    does not know, and ``NotImplementedError`` for a known one the port
+    does not run yet."""
     known = {"frontier": FRONTIER_MODES, "adj_layout": ADJ_LAYOUTS,
              "dist_layout": DIST_LAYOUTS}
     for key, value in options.items():
         if value not in known[key]:
             raise ValueError(f"unknown {key} {value!r}; known: "
                              f"{', '.join(known[key])}")
-        default, item = _NOT_PORTED[key]
-        if value != default:
-            raise NotImplementedError(
-                f"{key}={value!r} is not yet ported ({item}); the port runs "
-                f"{key}={default!r}")
+        if key in _NOT_PORTED:
+            default, item = _NOT_PORTED[key]
+            if value != default:
+                raise NotImplementedError(
+                    f"{key}={value!r} is not yet ported ({item}); the port "
+                    f"runs {key}={default!r}")
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 1).bit_length()
 
 
 class BatchedEngineArrays(NamedTuple):
-    adj: torch.Tensor      # (L, N, N) f32 shared
+    adj: object            # (L, N, N) f32 shared, or an EllAdjacency
     dist: torch.Tensor     # (Q, N, N, K) f32
     emitted: torch.Tensor  # (Q, N, N) bool
     now: torch.Tensor      # () f32
@@ -98,6 +129,16 @@ class QueryTables(NamedTuple):
     max_window: float = 0.0
 
 
+class HostBatch(NamedTuple):
+    """A micro-batch's slot, label and mask columns on the host: the ELL
+    mutations place events by them without reading the device."""
+
+    src: np.ndarray
+    dst: np.ndarray
+    lab: np.ndarray
+    mask: np.ndarray
+
+
 def _f32(x, device: torch.device) -> torch.Tensor:
     """A host scalar as a float32 device scalar. The clock arithmetic
     (``now``, ``ts_floor``, ``now - windows``, the expiry threshold) stays
@@ -107,32 +148,43 @@ def _f32(x, device: torch.device) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# step functions (in place on the state tensors; see the module docstring)
+# step functions (see the module docstring)
 # ---------------------------------------------------------------------------
 
 
 def apply_batch(arrays: BatchedEngineArrays, src, dst, lab, ts, mask,
-                ts_floor) -> Tuple[torch.Tensor, torch.Tensor]:
+                ts_floor, host: Optional[HostBatch] = None):
     """The ingest dispatch prologue: fold the masked batch into the
     adjacency (newest-timestamp max) and advance the stream clock.
-    Returns ``(adj, now)``; ``adj`` is updated in place.
+    Returns ``(adj, now)``. A dense ``adj`` is updated in place; an ELL
+    one scatters into row slots, spilling to the ring on row overflow,
+    placed by the host columns ``host`` (the device ones when None).
 
     A batch may hold one (label, src, dst) twice, and masked rows carry
     -inf: a scatter with ``amax`` keeps the newest timestamp, where an
     accumulating ``index_put_`` would add them."""
     eff_ts = torch.where(mask, ts, torch.full_like(ts, NEG_INF))
     adj = arrays.adj
-    _, n, _ = adj.shape
-    flat = (lab * n + src) * n + dst
-    adj.view(-1).scatter_reduce_(0, flat, eff_ts, "amax", include_self=True)
+    if isinstance(adj, EllAdjacency):
+        h = host or HostBatch(src, dst, lab, mask)
+        adj = ell_insert(adj, h.src, h.dst, h.lab, eff_ts, h.mask)
+    else:
+        _, n, _ = adj.shape
+        flat = (lab * n + src) * n + dst
+        adj.view(-1).scatter_reduce_(0, flat, eff_ts, "amax", include_self=True)
     now = torch.maximum(arrays.now, torch.maximum(eff_ts.max(), ts_floor))
     return adj, now
 
 
-def drop_batch(arrays: BatchedEngineArrays, src, dst, lab, mask) -> torch.Tensor:
+def drop_batch(arrays: BatchedEngineArrays, src, dst, lab, mask,
+               host: Optional[HostBatch] = None):
     """The delete dispatch prologue: clear the masked batch's adjacency
-    entries (in place). Returns the retained adjacency."""
+    entries (in place for a dense ``adj``; every stored copy, row slots
+    and ring, for an ELL one). Returns the retained adjacency."""
     adj = arrays.adj
+    if isinstance(adj, EllAdjacency):
+        h = host or HostBatch(src, dst, lab, mask)
+        return ell_delete(adj, h.src, h.dst, h.lab, h.mask)
     _, n, _ = adj.shape
     flat = ((lab * n + src) * n + dst)[mask]
     adj.view(-1)[flat] = NEG_INF
@@ -153,26 +205,44 @@ def emit_new(arrays: BatchedEngineArrays, dist, adj, now, finals_mask,
 
 def _ingest(arrays: BatchedEngineArrays, src, dst, lab, ts, mask, ts_floor,
             btt: BatchedTransitionTable, finals_mask, windows, live_mask,
-            w_max, backend: BackendLike = None):
+            w_max, backend: BackendLike = None,
+            host: Optional[HostBatch] = None):
     """One ingest dispatch: fold the batch, close every live lane, emit.
     Returns ``(arrays, new, rounds, query_rounds, host_syncs)``."""
-    adj, now = apply_batch(arrays, src, dst, lab, ts, mask, ts_floor)
+    adj, now = apply_batch(arrays, src, dst, lab, ts, mask, ts_floor, host)
     dist, rounds, qrounds, syncs = _closure(
         arrays.dist, adj, btt, backend, 0, live_mask, now, w_max)
     out, new = emit_new(arrays, dist, adj, now, finals_mask, windows)
     return out, new, rounds, qrounds, syncs
 
 
+def _ingest_frontier(arrays: BatchedEngineArrays, src, dst, lab, ts, mask,
+                     ts_floor, btt: BatchedTransitionTable, finals_mask,
+                     windows, live_mask, w_max, backend: BackendLike = None,
+                     f_cap: int = 32, host: Optional[HostBatch] = None):
+    """Frontier-restricted ingest: :func:`_ingest` with the closure
+    relaxing only the rows the batch dirtied (dense fallback on overflow).
+    Returns ``(arrays, new, rounds, query_rounds, frontier_stats,
+    host_syncs)``."""
+    adj, now = apply_batch(arrays, src, dst, lab, ts, mask, ts_floor, host)
+    dist, rounds, qrounds, fstats, syncs = _frontier(
+        arrays.dist, adj, btt, backend, src, mask, f_cap, live_mask, 0,
+        now, w_max, delete=False)
+    out, new = emit_new(arrays, dist, adj, now, finals_mask, windows)
+    return out, new, rounds, qrounds, fstats, syncs
+
+
 def _delete(arrays: BatchedEngineArrays, src, dst, lab, mask, ts_now,
             btt: BatchedTransitionTable, finals_mask, windows, live_mask,
-            w_max, backend: BackendLike = None):
+            w_max, backend: BackendLike = None,
+            host: Optional[HostBatch] = None):
     """Explicit deletion (negative tuple): clear adjacency entries and
     recompute every query's closure from scratch. Returns
     ``(arrays, invalidated, rounds, query_rounds, host_syncs)``."""
     now = torch.maximum(arrays.now, ts_now)
     low = now - windows
     valid_before = batched_valid_pairs(arrays.dist, finals_mask, low)
-    adj = drop_batch(arrays, src, dst, lab, mask)
+    adj = drop_batch(arrays, src, dst, lab, mask, host)
     dist0 = arrays.dist.fill_(NEG_INF)      # from scratch, in place
     dist, rounds, qrounds, syncs = _closure(
         dist0, adj, btt, backend, 0, live_mask, now, w_max)
@@ -182,23 +252,54 @@ def _delete(arrays: BatchedEngineArrays, src, dst, lab, mask, ts_now,
             invalidated, rounds, qrounds, syncs)
 
 
+def _delete_frontier(arrays: BatchedEngineArrays, src, dst, lab, mask,
+                     ts_now, btt: BatchedTransitionTable, finals_mask,
+                     windows, live_mask, w_max, backend: BackendLike = None,
+                     f_cap: int = 32, host: Optional[HostBatch] = None):
+    """Cone-seeded deletion: :func:`_delete` with only the rows whose
+    derivations can pass through the dropped edges (the cone, on the
+    pre-delete state) cleared and re-derived; cone overflow falls back to
+    the dense from-scratch loop. Returns ``(arrays, invalidated, rounds,
+    query_rounds, frontier_stats, host_syncs)``."""
+    now = torch.maximum(arrays.now, ts_now)
+    low = now - windows
+    valid_before = batched_valid_pairs(arrays.dist, finals_mask, low)
+    adj = drop_batch(arrays, src, dst, lab, mask, host)
+    dist, rounds, qrounds, fstats, syncs = _frontier(
+        arrays.dist, adj, btt, backend, src, mask, f_cap, live_mask, 0,
+        now, w_max, delete=True)
+    valid_after = batched_valid_pairs(dist, finals_mask, low)
+    invalidated = valid_before & ~valid_after
+    return (BatchedEngineArrays(adj, dist, arrays.emitted, now),
+            invalidated, rounds, qrounds, fstats, syncs)
+
+
 def _expire(arrays: BatchedEngineArrays, tau, max_window):
     """Lazy expiration at slide boundaries: drop adjacency entries at or
-    below ``now - max_window`` (in place) and report per-slot liveness.
-    dist needs no update (stale entries fall below each query's read-time
-    threshold)."""
+    below ``now - max_window`` and report per-slot liveness. dist needs no
+    update (stale entries fall below each query's read-time threshold)."""
     now = torch.maximum(arrays.now, tau)
     low = now - max_window
-    adj = arrays.adj.masked_fill_(~(arrays.adj > low), NEG_INF)
-    incident = torch.maximum(adj.amax(dim=(0, 2)), adj.amax(dim=(0, 1)))
+    if isinstance(arrays.adj, EllAdjacency):
+        adj = ell_expire(arrays.adj, low)
+        incident = ell_incident(adj)
+    else:
+        adj = arrays.adj.masked_fill_(~(arrays.adj > low), NEG_INF)
+        incident = torch.maximum(adj.amax(dim=(0, 2)), adj.amax(dim=(0, 1)))
     live = incident > low
     return BatchedEngineArrays(adj, arrays.dist, arrays.emitted, now), live
 
 
 def _clear_slots(arrays: BatchedEngineArrays, slots: torch.Tensor):
     """Reset rows/cols of recycled slots (-inf / False) for all queries,
-    in place."""
-    adj = arrays.adj.index_fill_(1, slots, NEG_INF).index_fill_(2, slots, NEG_INF)
+    in place on the dense tensors."""
+    if isinstance(arrays.adj, EllAdjacency):
+        n = arrays.emitted.shape[1]
+        dead = torch.zeros((n,), dtype=torch.bool, device=slots.device)
+        adj = ell_clear_slots(arrays.adj, dead.index_fill_(0, slots, True))
+    else:
+        adj = arrays.adj.index_fill_(1, slots, NEG_INF).index_fill_(2, slots,
+                                                                   NEG_INF)
     dist = arrays.dist.index_fill_(1, slots, NEG_INF).index_fill_(2, slots, NEG_INF)
     emitted = arrays.emitted.index_fill_(1, slots, False).index_fill_(2, slots, False)
     return BatchedEngineArrays(adj, dist, emitted, arrays.now)
@@ -212,10 +313,10 @@ def _clear_slots(arrays: BatchedEngineArrays, slots: torch.Tensor):
 class Executor:
     """Device-facing half of :class:`~repro_torch.core.engine.BatchedDenseRPQEngine`:
     owns the :class:`BatchedEngineArrays`, every dispatch over them and
-    the round accounting. ``device=None`` means the CUDA card and raises
-    without one. The frontier and the sparse layouts are not ported yet:
-    their options keep the JAX signature, any non-default value raises and
-    names its ROADMAP item, and their capacities are ignored."""
+    the round and frontier accounting. ``device=None`` means the CUDA card
+    and raises without one. ``dist_layout="row_sparse"`` is not ported yet
+    and raises (ROADMAP A9); ``dist_cap``/``dist_ovf_cap`` are accepted for
+    the JAX signature and unused."""
 
     q_multiple: int = 1
     n_multiple: int = 1
@@ -229,24 +330,59 @@ class Executor:
                  device: DeviceLike = None):
         check_ported(frontier=frontier, adj_layout=adj_layout,
                      dist_layout=dist_layout)
+        for name, value in (("frontier_cap", frontier_cap),
+                            ("ell_cap", ell_cap), ("spill_cap", spill_cap)):
+            if value < 1:
+                raise ValueError(f"{name} must be >= 1, got {value}")
         self.device = resolve_device(device)
         self.backend: Backend = resolve_backend(backend)
+        #: adjacency representation ("dense" | "ell"); results are layout-
+        #: independent, memory and the seed term are not
+        self.adj_layout = adj_layout
+        self.dist_layout = dist_layout
+        #: per-(label, u) degree capacity, pow2; grows x2 at spill drains
+        self.ell_cap = _next_pow2(ell_cap) if ell_cap > 1 else 1
+        #: spill-ring capacity; the budget drains before it can fill
+        self.spill_cap = _next_pow2(spill_cap)
+        self._spill_budget = 0    # inserts dispatched since the last drain
+        self._ell_repacks = 0
+        self._ell_spill_drains = 0
+        self._ell_live_edges: Optional[int] = None  # snapshot at last repack
+        #: "off" = dense dispatch only, "on" = frontier dispatch at a fixed
+        #: capacity, "auto" = frontier whose capacity grows x2 when overflow
+        #: fallbacks are flushed
+        self.frontier = frontier
+        self.frontier_cap = _next_pow2(frontier_cap) if frontier_cap > 1 else 1
         self.steps = 0  # ingest/delete dispatches
         self._arrays: Optional[BatchedEngineArrays] = None
-        # per-dispatch query-round tensors, read lazily so the dispatch
-        # path adds no sync of its own
-        self._pending_counts: List[torch.Tensor] = []
+        # (rounds, query_rounds device tensor, n_live, FrontierStats | None,
+        # n_slots, is_delete) per dispatch, folded in at _flush_counts
+        self._pending_counts: List[Tuple[int, torch.Tensor, int, object, int,
+                                         bool]] = []
         self._rounds_total = 0
         self._query_rounds_total = 0
         self._unmasked_query_rounds_total = 0
-        #: host reads of the closure loop's changed flags (one per round)
+        self._frontier_dispatches = 0
+        self._frontier_fallbacks = 0
+        self._frontier_rows_relaxed = 0
+        self._frontier_dense_row_equiv = 0
+        self._frontier_seed_rows = 0
+        self._frontier_max_lane_rows = 0
+        self._frontier_growth_mark = 0
+        self._frontier_delete_dispatches = 0
+        self._frontier_delete_fallbacks = 0
+        #: blocking reads of the closure loops (one per round) and of the
+        #: frontier fallback decision (one per frontier dispatch)
         self.host_syncs = 0
 
     # -- state ---------------------------------------------------------------
 
     def init_state(self, n_slots: int, n_label_slots: int, q_cap: int, k: int) -> None:
-        self.set_arrays(init_batched_arrays(n_slots, n_label_slots, q_cap, k,
-                                            self.device))
+        arrays = init_batched_arrays(n_slots, n_label_slots, q_cap, k,
+                                     self.device)
+        if self.adj_layout == "ell":
+            arrays = arrays._replace(adj=self._pack_device(arrays.adj))
+        self.set_arrays(arrays)
 
     @property
     def arrays(self) -> BatchedEngineArrays:
@@ -257,26 +393,61 @@ class Executor:
 
     def place(self, state: Dict[str, object]) -> None:
         """(Re)place host arrays (numpy) as this executor's device state —
-        the counterpart of the JAX executor's ``place``."""
+        the counterpart of the JAX executor's ``place``. ``adj`` is the
+        canonical dense slab; an ELL executor packs it (growing ``ell_cap``
+        x2 until the live max degree fits)."""
         def put(x, dtype):
             return torch.tensor(np.asarray(x), dtype=dtype, device=self.device)
 
         self.set_arrays(BatchedEngineArrays(
-            put(state["adj"], torch.float32),
+            self.pack_adj(state["adj"]),
             put(state["dist"], torch.float32),
             put(state["emitted"], torch.bool),
             put(np.float32(state["now"]), torch.float32).reshape(()),
         ))
 
+    def pack_adj(self, adj):
+        """Host dense slab -> device adjacency in this executor's layout
+        (ELL packs after growing ``ell_cap`` x2 until the live max degree
+        fits, so a pack never spills)."""
+        adj_np = np.asarray(adj, np.float32)
+        if self.adj_layout == "ell":
+            need = int((adj_np > NEG_INF).sum(axis=-1).max()) if adj_np.size \
+                else 0
+            while self.ell_cap < need:
+                self.ell_cap *= 2
+            self._spill_budget = 0
+            return from_numpy(pack_ell(adj_np, self.ell_cap, self.spill_cap),
+                              self.device)
+        return torch.tensor(adj_np, dtype=torch.float32, device=self.device)
+
+    def _pack_device(self, dense: torch.Tensor) -> EllAdjacency:
+        """:meth:`pack_adj` for a dense slab already on the device (growth
+        and re-packs keep the state on the card)."""
+        need = int(device_get((dense > NEG_INF).sum(dim=-1).max())) \
+            if dense.numel() else 0
+        while self.ell_cap < need:
+            self.ell_cap *= 2
+        self._spill_budget = 0
+        return pack_ell_dense(dense, self.ell_cap, self.spill_cap)
+
     def dense_adj(self) -> torch.Tensor:
-        return self._arrays.adj
+        """The adjacency in canonical dense form regardless of layout."""
+        a = self._arrays.adj
+        if isinstance(a, EllAdjacency):
+            return ell_to_dense(a)
+        return a
 
     def dense_dist(self) -> torch.Tensor:
         return self._arrays.dist
 
     @property
     def adj_shape(self) -> Tuple[int, int, int]:
-        return tuple(self._arrays.adj.shape)
+        """Logical dense ``(L, N, N)`` adjacency shape regardless of layout."""
+        a = self._arrays.adj
+        if isinstance(a, EllAdjacency):
+            return (a.n_labels, a.n_slots, a.n_slots)
+        return tuple(a.shape)
 
     @property
     def dist_shape(self) -> Tuple[int, int, int, int]:
@@ -286,9 +457,11 @@ class Executor:
              k: Optional[int] = None, n_label_slots: Optional[int] = None) -> None:
         """Grow device state (append-only padding: -inf / False); existing
         lanes, labels, slots and states keep their indices. Never shrinks.
-        Grows on the device, with no host round trip."""
+        Grows on the device; an ELL adjacency re-packs at the new shape, as
+        the reference's growth through the dense slab does (the ring
+        drains as a side effect)."""
         a = self._arrays
-        l_old, n_old, _ = a.adj.shape
+        l_old, n_old, _ = self.adj_shape
         q_old, _, _, k_old = a.dist.shape
         n_new = max(n_slots or 0, n_old)
         l_new = max(n_label_slots or 0, l_old)
@@ -297,10 +470,13 @@ class Executor:
         if (n_new, l_new, q_new, k_new) == (n_old, l_old, q_old, k_old):
             return
         grown = init_batched_arrays(n_new, l_new, q_new, k_new, self.device)
-        grown.adj[:l_old, :n_old, :n_old] = a.adj
+        grown.adj[:l_old, :n_old, :n_old] = self.dense_adj()
         grown.dist[:q_old, :n_old, :n_old, :k_old] = a.dist
         grown.emitted[:q_old, :n_old, :n_old] = a.emitted
-        self.set_arrays(grown._replace(now=a.now))
+        grown = grown._replace(now=a.now)
+        if self.adj_layout == "ell":
+            grown = grown._replace(adj=self._pack_device(grown.adj))
+        self.set_arrays(grown)
 
     # -- dispatches ----------------------------------------------------------
 
@@ -311,40 +487,60 @@ class Executor:
     def ingest_batch(self, src, dst, lab, ts, mask, ts_floor: float,
                      tables: QueryTables) -> torch.Tensor:
         """One ingest dispatch for the whole query group. Returns the
-        per-query NEW-validity matrix (Q, N, N) as a device tensor."""
+        per-query NEW-validity matrix (Q, N, N) as a device tensor. With
+        ``frontier != "off"`` the closure is frontier-restricted (dense
+        fallback on overflow; results are bit-identical either way)."""
+        if self.adj_layout == "ell":
+            self._reserve_spill(len(src))
+        host = HostBatch(np.asarray(src, np.int64), np.asarray(dst, np.int64),
+                         np.asarray(lab, np.int64), np.asarray(mask, bool))
         src_t, dst_t, lab_t, ts_t, mask_t = self._batch(
-            np.asarray(src, np.int64), np.asarray(dst, np.int64),
-            np.asarray(lab, np.int64), np.asarray(ts, np.float32),
-            np.asarray(mask, bool))
-        self._arrays, new, rounds, qrounds, syncs = _ingest(
-            self._arrays, src_t, dst_t, lab_t, ts_t, mask_t,
-            _f32(ts_floor, self.device),
-            tables.btt, tables.finals_mask, tables.windows, tables.live_mask,
-            _f32(tables.max_window, self.device), backend=self.backend)
-        self._account(rounds, qrounds, tables.n_live, syncs)
+            host.src, host.dst, host.lab, np.asarray(ts, np.float32), host.mask)
+        args = (self._arrays, src_t, dst_t, lab_t, ts_t, mask_t,
+                _f32(ts_floor, self.device), tables.btt, tables.finals_mask,
+                tables.windows, tables.live_mask,
+                _f32(tables.max_window, self.device))
+        fstats = None
+        if self.frontier != "off":
+            self._arrays, new, rounds, qrounds, fstats, syncs = _ingest_frontier(
+                *args, backend=self.backend, f_cap=self.frontier_cap, host=host)
+        else:
+            self._arrays, new, rounds, qrounds, syncs = _ingest(
+                *args, backend=self.backend, host=host)
+        self._account(rounds, qrounds, tables.n_live, syncs, fstats)
         self.steps += 1
         return new
 
     def delete_batch(self, src, dst, lab, mask, ts_now: float,
                      tables: QueryTables) -> torch.Tensor:
         """Explicit deletion dispatch; returns the invalidated pairs
-        (Q, N, N) as a device tensor."""
-        src_t, dst_t, lab_t, mask_t = self._batch(
-            np.asarray(src, np.int64), np.asarray(dst, np.int64),
-            np.asarray(lab, np.int64), np.asarray(mask, bool))
-        self._arrays, invalidated, rounds, qrounds, syncs = _delete(
-            self._arrays, src_t, dst_t, lab_t, mask_t,
-            _f32(ts_now, self.device),
-            tables.btt, tables.finals_mask, tables.windows, tables.live_mask,
-            _f32(tables.max_window, self.device), backend=self.backend)
-        self._account(rounds, qrounds, tables.n_live, syncs)
+        (Q, N, N) as a device tensor. With ``frontier != "off"`` only the
+        deleted edges' cone is cleared and re-derived."""
+        host = HostBatch(np.asarray(src, np.int64), np.asarray(dst, np.int64),
+                         np.asarray(lab, np.int64), np.asarray(mask, bool))
+        src_t, dst_t, lab_t, mask_t = self._batch(host.src, host.dst,
+                                                  host.lab, host.mask)
+        args = (self._arrays, src_t, dst_t, lab_t, mask_t,
+                _f32(ts_now, self.device), tables.btt, tables.finals_mask,
+                tables.windows, tables.live_mask,
+                _f32(tables.max_window, self.device))
+        fstats = None
+        if self.frontier != "off":
+            self._arrays, invalidated, rounds, qrounds, fstats, syncs = \
+                _delete_frontier(*args, backend=self.backend,
+                                 f_cap=self.frontier_cap, host=host)
+        else:
+            self._arrays, invalidated, rounds, qrounds, syncs = _delete(
+                *args, backend=self.backend, host=host)
+        self._account(rounds, qrounds, tables.n_live, syncs, fstats,
+                      is_delete=True)
         self.steps += 1
         return invalidated
 
     def relax(self, tables: QueryTables,
               query_mask: Optional[np.ndarray] = None) -> None:
         """Run the batched closure to fixpoint in place (lane seeding at
-        registration, or any re-derivation)."""
+        registration, or any re-derivation); always the dense loop."""
         a = self._arrays
         mask = tables.live_mask if query_mask is None else torch.as_tensor(
             np.asarray(query_mask, bool)).to(self.device)
@@ -382,29 +578,166 @@ class Executor:
         a = self._arrays
         self._arrays = a._replace(now=torch.maximum(a.now, _f32(ts, self.device)))
 
-    # -- round accounting ----------------------------------------------------
+    # -- ELL spill budget ----------------------------------------------------
+    #
+    # Each ingest dispatch of width B can append at most B ring entries, so
+    # the host tracks the appends since the last drain and reads the ring
+    # cursor BEFORE a dispatch could overflow it. A drain that finds the
+    # ring occupied grows ``ell_cap`` x2 toward the true max degree and
+    # re-packs (which empties the ring); one that finds it empty resets the
+    # budget. Both reads are explicit syncs (device_get), off the
+    # per-event path: streams without degree growth never pay them.
+
+    def _reserve_spill(self, b: int) -> None:
+        bneed = _next_pow2(2 * max(b, 1))
+        grew = False
+        while self.spill_cap < bneed:
+            self.spill_cap *= 2
+            grew = True
+        if grew:
+            self._repack_ell()
+        elif self._spill_budget + b > self.spill_cap:
+            self._drain_spill()
+        self._spill_budget += b
+
+    def _drain_spill(self) -> None:
+        self._ell_spill_drains += 1
+        ptr = int(device_get(self._arrays.adj.spill_ptr))
+        if ptr > 0:
+            need = int(device_get(ell_max_degree(self._arrays.adj)))
+            while self.ell_cap < need:
+                self.ell_cap *= 2
+            self._repack_ell()
+        else:
+            self._spill_budget = 0
+
+    def _repack_ell(self) -> None:
+        """Re-pack at the current capacities on the device: densify, pack
+        the rows (ring folded in, then emptied). Growth and compaction
+        reuse this; dist/emitted stay resident."""
+        dense = ell_to_dense(self._arrays.adj)
+        self._arrays = self._arrays._replace(adj=self._pack_device(dense))
+        self._ell_repacks += 1
+        self._ell_live_edges = int(device_get((dense > NEG_INF).sum()))
+
+    @property
+    def adjacency_stats(self) -> Dict[str, object]:
+        """Adjacency-representation telemetry (host-known values only).
+        ``live_edges`` and ``occupancy`` are snapshots from the last
+        re-pack (None before one); ``adj_bytes`` is the device footprint
+        of the current representation."""
+        a = self._arrays.adj if self._arrays is not None else None
+        if isinstance(a, EllAdjacency):
+            slot_cells = a.n_labels * a.n_slots * a.ell_cap
+            adj_bytes = sum(x.numel() * x.element_size() for x in a)
+        else:
+            slot_cells = a.numel() if a is not None else 0
+            adj_bytes = slot_cells * 4
+        return {
+            "layout": self.adj_layout,
+            "ell_cap": self.ell_cap,
+            "spill_cap": self.spill_cap,
+            "repacks": self._ell_repacks,
+            "spill_drains": self._ell_spill_drains,
+            "live_edges": self._ell_live_edges,
+            "slot_cells": slot_cells,
+            "adj_bytes": adj_bytes,
+            "occupancy": (self._ell_live_edges / slot_cells
+                          if self._ell_live_edges is not None and slot_cells
+                          else None),
+        }
+
+    # -- round and frontier accounting ---------------------------------------
 
     def _account(self, rounds: int, qrounds: torch.Tensor, n_live: int,
-                 syncs: int) -> None:
-        self._rounds_total += rounds
-        self._unmasked_query_rounds_total += n_live * rounds
+                 syncs: int, fstats=None, is_delete: bool = False) -> None:
         self.host_syncs += syncs
-        self._pending_counts.append(qrounds)
-        if len(self._pending_counts) >= 256:
+        n = self.dist_shape[1] if self._arrays is not None else 0
+        self._pending_counts.append(
+            (rounds, qrounds, n_live, fstats, n, is_delete))
+        # "auto" flushes more eagerly: its x2 capacity growth reads the
+        # flushed overflow telemetry (the reference's cadence)
+        limit = 64 if self.frontier == "auto" else 256
+        if len(self._pending_counts) >= limit:
             self._flush_counts()
 
     def _flush_counts(self) -> None:
-        for qrounds in self._pending_counts:
-            self._consume_count(qrounds)
+        for rounds, qrounds, n_live, fstats, n, is_delete in \
+                self._pending_counts:
+            self._consume_count(rounds, qrounds, n_live)
+            self._consume_frontier(fstats, rounds, n_live, n, is_delete)
         self._pending_counts.clear()
+        self._maybe_grow_frontier()
 
-    def _consume_count(self, qrounds: torch.Tensor) -> None:
+    def _consume_count(self, rounds: int, qrounds: torch.Tensor,
+                       n_live: int) -> None:
+        self._rounds_total += rounds
         self._query_rounds_total += int(device_get(qrounds.sum()))
+        self._unmasked_query_rounds_total += n_live * rounds
+
+    def _consume_frontier(self, fstats, rounds: int, n_live: int, n: int,
+                          is_delete: bool = False) -> None:
+        if fstats is None:
+            return
+        self._frontier_dispatches += 1
+        fell = int(fstats.fell_back)
+        self._frontier_fallbacks += fell
+        if is_delete:
+            self._frontier_delete_dispatches += 1
+            self._frontier_delete_fallbacks += fell
+        self._frontier_rows_relaxed += fstats.rows_relaxed
+        self._frontier_seed_rows += fstats.seed_rows
+        self._frontier_max_lane_rows = max(self._frontier_max_lane_rows,
+                                           fstats.max_lane_rows)
+        # what a dense loop of the same dispatch relaxes: every live lane
+        # rides every round over all N rows
+        self._frontier_dense_row_equiv += n_live * n * rounds
+
+    def _maybe_grow_frontier(self) -> None:
+        """``frontier="auto"``: grow the capacity x2 toward the largest
+        observed lane frontier whenever new overflow fallbacks were
+        flushed."""
+        if self.frontier != "auto":
+            return
+        if self._frontier_fallbacks <= self._frontier_growth_mark:
+            return
+        self._frontier_growth_mark = self._frontier_fallbacks
+        n = (self.dist_shape[1]
+             if self._arrays is not None else self._frontier_max_lane_rows)
+        limit = _next_pow2(n)
+        target = min(_next_pow2(max(self._frontier_max_lane_rows,
+                                    self.frontier_cap * 2)), limit)
+        while self.frontier_cap < target:
+            self.frontier_cap *= 2
+
+    @property
+    def frontier_stats(self) -> Dict[str, object]:
+        """Aggregate frontier telemetry: dispatches (ingest and delete; the
+        delete split also on its own), overflow fallbacks, rows relaxed vs
+        the dense-loop row equivalent, seed rows and the current capacity.
+        ``occupancy`` is None when no dense-row-equivalent work was seen."""
+        self._flush_counts()
+        dense_rows = self._frontier_dense_row_equiv
+        return {
+            "mode": self.frontier,
+            "cap": self.frontier_cap,
+            "dispatches": self._frontier_dispatches,
+            "fallbacks": self._frontier_fallbacks,
+            "delete_dispatches": self._frontier_delete_dispatches,
+            "delete_fallbacks": self._frontier_delete_fallbacks,
+            "rows_relaxed": self._frontier_rows_relaxed,
+            "dense_row_equiv": dense_rows,
+            "seed_rows": self._frontier_seed_rows,
+            "max_lane_rows": self._frontier_max_lane_rows,
+            "occupancy": (self._frontier_rows_relaxed / dense_rows
+                          if dense_rows else None),
+        }
 
     @property
     def rounds_total(self) -> int:
         """Global closure iterations (each dispatch's loop runs until its
         slowest participating query converges)."""
+        self._flush_counts()
         return self._rounds_total
 
     @property
@@ -417,6 +750,7 @@ class Executor:
     def unmasked_query_rounds_total(self) -> int:
         """What the same dispatches would cost with every live lane riding
         to the global fixpoint."""
+        self._flush_counts()
         return self._unmasked_query_rounds_total
 
 

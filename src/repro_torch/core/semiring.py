@@ -1,6 +1,7 @@
 """(max, min) bottleneck-semiring relaxation over the product graph, for a
-batch of queries — the dense layout of ``repro.core.semiring``
-(lines 184-406).
+batch of queries — the dense-dist layout of ``repro.core.semiring``
+(lines 184-825): the batched round and closure over a dense or an ELL
+adjacency, and the frontier-restricted closure and deletion.
 
 ``dist[q, x, v, s]`` is the best (max over paths) bottleneck (min over
 edges) timestamp of any path x -> v whose label drives query q's DFA from
@@ -18,7 +19,9 @@ segment max into (query, destination state) slices.
 The fixpoint loop is a Python loop: the JAX version runs it on the device
 (``lax.while_loop``); here the host reads the per-lane changed flags once
 per round, and :func:`batched_closure` reports how many such reads it
-made so the executor can count host syncs per dispatch.
+made so the executor can count host syncs per dispatch. Likewise the
+frontier closure's in-dispatch dense fallback (a ``lax.cond`` in JAX) is a
+host decision here, on one read of the per-lane frontier counts.
 """
 from __future__ import annotations
 
@@ -27,8 +30,9 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, device_get, resolve_device
 from .contraction import Backend, BackendLike, resolve_backend
+from .sparse_adj import EllAdjacency, ell_rows_dense
 
 NEG_INF = float("-inf")
 
@@ -114,17 +118,23 @@ def _round_update(dist: torch.Tensor, adj: torch.Tensor,
     active = btt.active
     if query_mask is not None:
         active = active & query_mask[btt.qidx]
-    contrib = backend.contract_batched(dist, adj, btt, active)   # (J, N, N)
     # base term: seed (x, x, s0) = +inf => min(+inf, adj[l, x, v]) = adj,
     # applied only to ACTIVE start rows so it cannot unmask a zeroed row
     s = btt.start_idx
-    if s.numel():
-        sub = contrib.index_select(0, s)
-        base = adj.index_select(0, btt.lab.index_select(0, s))
-        sub = torch.where(active.index_select(0, s)[:, None, None],
-                          torch.maximum(sub, base), sub)
-        contrib.index_copy_(0, s, sub)
-        del sub, base
+    if isinstance(adj, EllAdjacency):
+        contrib = backend.contract_batched_ell(dist, adj, btt, active)
+        if s.numel():
+            _fold_base_ell(contrib, adj, s, btt.lab.index_select(0, s),
+                           active.index_select(0, s))
+    else:
+        contrib = backend.contract_batched(dist, adj, btt, active)  # (J, N, N)
+        if s.numel():
+            sub = contrib.index_select(0, s)
+            base = adj.index_select(0, btt.lab.index_select(0, s))
+            sub = torch.where(active.index_select(0, s)[:, None, None],
+                              torch.maximum(sub, base), sub)
+            contrib.index_copy_(0, s, sub)
+            del sub, base
     # segment max over qidx * K + dst; empty segments stay -inf, the
     # semiring zero (jax.ops.segment_max fills the dtype minimum, which
     # is -inf for floats: the same values)
@@ -135,9 +145,33 @@ def _round_update(dist: torch.Tensor, adj: torch.Tensor,
     return scat.view(q, k, n, n).permute(0, 2, 3, 1)
 
 
+def _fold_base_ell(contrib: torch.Tensor, ell: EllAdjacency,
+                   rows: torch.Tensor, labs: torch.Tensor,
+                   active: torch.Tensor) -> None:
+    """``contrib[rows[i]] max= dense(ell)[labs[i]]`` for the active rows,
+    in place, straight off the ELL slots and the ring: the same values as
+    the reference's densified ``ell_label_rows`` folded with max, without
+    materializing a (J, N, N) slab."""
+    _j, n, _ = contrib.shape
+    dev = contrib.device
+    flat_out = contrib.view(-1)
+    x = torch.arange(n, device=dev)
+    ts = torch.where(active[:, None, None], ell.ts[labs], NEG_INF)  # (S, N, E)
+    flat = ((rows[:, None, None] * n + x[None, :, None]) * n
+            + ell.idx[labs].long())
+    flat_out.scatter_reduce_(0, flat.reshape(-1), ts.reshape(-1), "amax",
+                             include_self=True)
+    hit = (ell.spill_lab.long()[None, :] == labs[:, None]) & active[:, None]
+    ring = torch.where(hit, ell.spill_ts[None, :], NEG_INF)          # (S, R)
+    flat = ((rows[:, None] * n + ell.spill_src.long()[None, :]) * n
+            + ell.spill_dst.long()[None, :])
+    flat_out.scatter_reduce_(0, flat.reshape(-1), ring.reshape(-1), "amax",
+                             include_self=True)
+
+
 def batched_relax_round(
     dist: torch.Tensor,          # (Q, N, N, K)
-    adj: torch.Tensor,           # (L, N, N) shared adjacency
+    adj,                         # (L, N, N) shared adjacency or EllAdjacency
     btt: BatchedTransitionTable,
     backend: BackendLike = None,
     query_mask: Optional[torch.Tensor] = None,   # (Q,) bool, True = relax
@@ -243,3 +277,292 @@ def batched_valid_pairs(
     is (Q,) (per-query window thresholds applied at read time; strict >)."""
     best = dist.masked_fill(~finals[:, None, None, :], NEG_INF).amax(dim=3)
     return best > low[:, None, None]
+
+
+# ---------------------------------------------------------------------------
+# Frontier-restricted relaxation and deletion (reference: semiring.py:409-819)
+#
+# The (max, min) recurrence couples dist[q, x, v, t] only to dist[q, x, u, s]
+# — the same source row x — so a closure at its fixpoint before a batch can
+# only change on the rows the batch dirties: rows x = an inserted edge's
+# source (the base term) and rows already reaching one with a finite entry.
+# A round restricted to those rows reaches the dense fixpoint exactly, rows
+# that stop changing drop out, and when some lane's dirty set overflows the
+# frontier capacity F the dispatch runs the dense loop instead. For a
+# deletion the same reduction over the pre-delete state is the deleted
+# edges' cone: those rows are cleared and re-derived, the rest keep their
+# values (equal on every entry above the window threshold; only window-dead
+# entries may differ from a dense from-scratch re-closure).
+#
+# Differences from the JAX version, none of them visible in the results:
+# the fallback is chosen on the host from one read of the per-lane counts
+# (JAX: lax.cond on the device), the frontier loop reads the changed-row
+# count once per round (JAX: lax.while_loop), so every FrontierStats field
+# is a host value; and dist is updated in place, as the JAX executor
+# donates it.
+# ---------------------------------------------------------------------------
+
+
+class FrontierStats(NamedTuple):
+    """Per-dispatch frontier telemetry (host values)."""
+
+    seed_rows: int        # dirty rows across all lanes
+    max_lane_rows: int    # largest single-lane frontier
+    rows_relaxed: int     # sum over rounds of rows relaxed
+    fell_back: bool       # dense fallback taken (overflow)
+
+
+def _source_mask(src: torch.Tensor, smask: torch.Tensor, n: int) -> torch.Tensor:
+    """(N,) bool: the batch's unmasked source slots (masked slots index
+    one past the end and are cut off, as JAX's ``mode="drop"``)."""
+    idx = torch.where(smask, src, n)
+    out = torch.zeros((n + 1,), dtype=torch.bool, device=src.device)
+    return out.index_fill_(0, idx, True)[:n]
+
+
+def frontier_seed(
+    dist: torch.Tensor,          # (Q, N, N, K) f32 timestamps
+    src: torch.Tensor,           # (B,) int64 inserted-edge source slots
+    smask: torch.Tensor,         # (B,) bool batch padding mask
+    query_mask: Optional[torch.Tensor] = None,   # (Q,) bool live lanes
+) -> torch.Tensor:
+    """(Q, N) bool dirty-row mask for a batch of inserted edges: rows
+    x = src (base term) plus rows with a finite entry reaching an inserted
+    edge's source in any DFA state (the O(Q·N²·K) scan)."""
+    n = dist.shape[1]
+    src_mask = _source_mask(src, smask, n)
+    finite = (dist > NEG_INF).any(dim=3)                     # (Q, N, N)
+    reach = (finite & src_mask[None, None, :]).any(dim=2)    # (Q, N)
+    dirty = reach | src_mask[None, :]
+    if query_mask is not None:
+        dirty = dirty & query_mask[:, None]
+    return dirty
+
+
+def frontier_seed_gathered(
+    dist: torch.Tensor,
+    src: torch.Tensor,
+    smask: torch.Tensor,
+    query_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """:func:`frontier_seed` with the O(N²) scan replaced by a gather of
+    the batch's B source columns (O(Q·N·B·K)); the same mask exactly. The
+    ELL layout seeds with it, the dense layout keeps the scan, as in the
+    reference."""
+    n = dist.shape[1]
+    cols = dist.index_select(2, torch.where(smask, src, 0))  # (Q, N, B, K)
+    reach = ((cols > NEG_INF) & smask[None, None, :, None]).any(dim=3).any(dim=2)
+    dirty = reach | _source_mask(src, smask, n)[None, :]
+    if query_mask is not None:
+        dirty = dirty & query_mask[:, None]
+    return dirty
+
+
+def delete_cone(dist, src, smask, query_mask=None) -> torch.Tensor:
+    """(Q, N) bool invalidation cone of a batch of deleted edges on the
+    PRE-delete state: the same reduction as :func:`frontier_seed`."""
+    return frontier_seed(dist, src, smask, query_mask)
+
+
+def pack_frontier(
+    dirty: torch.Tensor, f_cap: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Compact a (Q, N) dirty mask into per-lane row indices: ``(rows,
+    rowmask, counts)`` with rows (Q, F) int64 (the first ``min(count, F)``
+    slots hold the dirty rows in ascending order, padding is 0), rowmask
+    (Q, F) bool, counts (Q,) int32 of the TRUE dirty rows (counts > F is
+    an overflow: the surplus rows are dropped here, so callers fall back
+    to the dense loop). The rows are scattered into a buffer one column
+    wider, whose last column takes every dropped write and is cut off."""
+    q, n = dirty.shape
+    cnt = dirty.sum(dim=1).to(torch.int32)
+    pos = torch.cumsum(dirty, dim=1) - 1
+    pos = torch.where(dirty, torch.clamp(pos, max=f_cap), f_cap)
+    rows = torch.zeros((q, f_cap + 1), dtype=torch.int64, device=dirty.device)
+    rows.scatter_(1, pos, torch.arange(n, device=dirty.device).expand(q, n))
+    rowmask = (torch.arange(f_cap, device=dirty.device)[None, :]
+               < torch.clamp(cnt, max=f_cap)[:, None])
+    return rows[:, :f_cap], rowmask, cnt
+
+
+def _frontier_slab_round(
+    slab: torch.Tensor,          # (Q, F, N, K) gathered frontier rows
+    adj,                         # (L, N, N) dense adjacency or EllAdjacency
+    btt: BatchedTransitionTable,
+    backend: Backend,
+    rows: torch.Tensor,          # (Q, F) int64 frontier row indices
+    rowmask: torch.Tensor,       # (Q, F) bool valid-slot mask
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One frontier round on the gathered slab (no scatter back): the
+    contraction through the backend (kernel B1 on skinny (F, N) slabs with
+    a dense adjacency, kernel B5 with an ELL one), the base term at the
+    frontier rows, masking and the segment max. Returns ``(new_slab,
+    changed)`` with changed (Q, F) intersected with ``rowmask``."""
+    q, f, n, k = slab.shape
+    slab_s = slab[btt.qidx, :, :, btt.src].contiguous()     # (J, F, N) [f, u]
+    rows_j = rows[btt.qidx]                                  # (J, F)
+    if isinstance(adj, EllAdjacency):
+        contrib = backend.contract_rows_ell(slab_s, adj, btt.lab)
+        a_base = ell_rows_dense(adj, btt.lab, rows_j, backend.zero)
+    else:
+        a_l = adj[btt.lab]                                   # (J, N, N)
+        contrib = backend.contract_rows(slab_s, a_l)         # (J, F, N)
+        a_base = a_l.gather(1, rows_j[:, :, None].expand(-1, -1, n))
+        del a_l
+    del slab_s
+    base_rows = btt.start_mask & btt.active
+    contrib = torch.where(base_rows[:, None, None],
+                          torch.maximum(contrib, a_base), contrib)
+    act = btt.active[:, None] & rowmask[btt.qidx]            # (J, F)
+    contrib = contrib.masked_fill_(~act[:, :, None], backend.zero)
+    seg = btt.qidx * k + btt.dst
+    scat = torch.full((q * k, f, n), NEG_INF, dtype=slab.dtype,
+                      device=slab.device)
+    scat.index_reduce_(0, seg, contrib, "amax", include_self=True)
+    upd = scat.view(q, k, f, n).permute(0, 2, 3, 1)          # (Q, F, N, K)
+    new_slab = torch.maximum(slab, upd)
+    changed = (new_slab > slab).flatten(2).any(dim=2) & rowmask
+    return new_slab, changed
+
+
+def frontier_relax_round(
+    dist: torch.Tensor,          # (Q, N, N, K), updated IN PLACE
+    adj,
+    btt: BatchedTransitionTable,
+    backend: BackendLike,
+    rows: torch.Tensor,          # (Q, F) frontier row indices
+    rowmask: torch.Tensor,       # (Q, F) bool valid-slot mask
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One relaxation round restricted to the frontier rows: gather the
+    (Q, F, N, K) slab, run :func:`_frontier_slab_round`, and max-scatter
+    the slab back into ``dist`` (in place; returned). Padded slots repeat
+    row 0 of their lane, which can also be a valid row of the same lane:
+    the max-scatter folds both, as JAX's ``.at[].max`` does, where a plain
+    indexed write could keep the stale copy. Returns ``(dist, changed)``."""
+    backend = resolve_backend(backend)
+    q, n = dist.shape[0], dist.shape[1]
+    f = rows.shape[1]
+    flat = (torch.arange(q, device=dist.device)[:, None] * n + rows).reshape(-1)
+    rows2d = dist.view(q * n, -1)
+    slab = rows2d.index_select(0, flat).view(q, f, n, -1)
+    new_slab, changed = _frontier_slab_round(slab, adj, btt, backend, rows,
+                                             rowmask)
+    rows2d.index_reduce_(0, flat, new_slab.reshape(q * f, -1), "amax",
+                         include_self=True)
+    return dist, changed
+
+
+def _frontier_loop(dist, adj, btt, backend, rows, rowmask0, n_active: int,
+                   bound: int):
+    """The frontier rounds of one dispatch, in place on ``dist``: round 1
+    relaxes ``rowmask0`` (``n_active`` rows, known on the host), each later
+    round the rows the previous one changed, until none changed or
+    ``bound`` rounds ran. One host read per round (the changed-row count).
+    Returns ``(dist, rounds, query_rounds, rows_relaxed, host_syncs)``."""
+    q = dist.shape[0]
+    qrounds = torch.zeros((q,), dtype=torch.int32, device=dist.device)
+    rm = rowmask0
+    rounds = rows_relaxed = syncs = 0
+    while n_active > 0 and rounds < bound:
+        qrounds += rm.any(dim=1).to(torch.int32)
+        dist, rm = frontier_relax_round(dist, adj, btt, backend, rows, rm)
+        rows_relaxed += n_active
+        rounds += 1
+        if rounds < bound:
+            n_active = int(device_get(rm.sum()))
+            syncs += 1
+    return dist, rounds, qrounds, rows_relaxed, syncs
+
+
+def _frontier(dist, adj, btt, backend, src, smask, f_cap, query_mask,
+              max_rounds, now, w_max, delete: bool):
+    """:func:`frontier_closure` (``delete=False``) and
+    :func:`frontier_delete` (``delete=True``) plus the host-sync count."""
+    backend = resolve_backend(backend)
+    q, n, _, k = dist.shape
+    bound = max_rounds if max_rounds > 0 else n * k + 1
+    mask0 = (torch.ones((q,), dtype=torch.bool, device=dist.device)
+             if query_mask is None else query_mask.to(torch.bool))
+    # ELL seeds by the batch-column gather, dense keeps the scan: the same
+    # mask either way, so the overflow decision is layout-independent
+    seed_fn = (frontier_seed_gathered if isinstance(adj, EllAdjacency)
+               else frontier_seed)
+    dirty = seed_fn(dist, src, smask, mask0)
+    rows, rowmask0, cnt = pack_frontier(dirty, f_cap)
+    # the one read that replaces lax.cond: counts per lane and live lanes
+    host = device_get(torch.cat([cnt.to(torch.int64),
+                                 mask0.sum().reshape(1)]))
+    cnt_h, live_lanes = host[:q], int(host[q])
+    overflow = bool((cnt_h > f_cap).any())
+    syncs = 1
+    if delete:
+        # the cone's rows, or every row on the fallback, re-derive from -inf
+        if overflow:
+            dist.fill_(NEG_INF)
+        else:
+            dist.masked_fill_(dirty[:, :, None, None], NEG_INF)
+    dist_op, adj_op = backend.prepare_state(dist, adj, now, w_max)
+    if overflow:
+        dist_f, rounds, qrounds, loop_syncs = _masked_closure_loop(
+            dist_op, adj_op, btt, backend, mask0, bound)
+        rows_relaxed = rounds * live_lanes * n
+    else:
+        n_active = int(np.minimum(cnt_h, f_cap).sum())
+        dist_f, rounds, qrounds, rows_relaxed, loop_syncs = _frontier_loop(
+            dist_op, adj_op, btt, backend, rows, rowmask0, n_active, bound)
+    stats = FrontierStats(int(cnt_h.sum()), int(cnt_h.max()), rows_relaxed,
+                          overflow)
+    return (backend.decode_state(dist_f, now, w_max), rounds, qrounds, stats,
+            syncs + loop_syncs)
+
+
+def frontier_closure(
+    dist: torch.Tensor,
+    adj,
+    btt: BatchedTransitionTable,
+    backend: BackendLike,
+    src: torch.Tensor,           # (B,) inserted-edge source slots
+    smask: torch.Tensor,         # (B,) bool batch padding mask
+    f_cap: int,                  # frontier capacity (bucketed ×2)
+    query_mask: Optional[torch.Tensor] = None,
+    max_rounds: int = 0,
+    now: Optional[torch.Tensor] = None,
+    w_max: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, int, torch.Tensor, FrontierStats]:
+    """Frontier-restricted closure with the dense fallback: seed from the
+    batch, iterate frontier rounds until every row settles, or run the
+    exact dense masked loop when any lane's dirty set overflows ``f_cap``.
+    ``dist`` is updated IN PLACE and returned; results are bit-identical
+    to :func:`batched_closure` either way.
+
+    Returns ``(dist, rounds, query_rounds, stats)`` as the JAX version:
+    ``query_rounds`` counts the rounds a lane had a non-empty frontier (a
+    lane the batch never dirtied counts zero)."""
+    dist, rounds, qrounds, stats, _ = _frontier(
+        dist, adj, btt, backend, src, smask, f_cap, query_mask, max_rounds,
+        now, w_max, delete=False)
+    return dist, rounds, qrounds, stats
+
+
+def frontier_delete(
+    dist: torch.Tensor,          # PRE-delete state, updated IN PLACE
+    adj,                         # RETAINED adjacency (edges dropped)
+    btt: BatchedTransitionTable,
+    backend: BackendLike,
+    src: torch.Tensor,
+    smask: torch.Tensor,
+    f_cap: int,
+    query_mask: Optional[torch.Tensor] = None,
+    max_rounds: int = 0,
+    now: Optional[torch.Tensor] = None,
+    w_max: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, int, torch.Tensor, FrontierStats]:
+    """Cone-seeded re-derivation after a batch of deletions: the deleted
+    edges' cone on the pre-delete ``dist`` is cleared to -inf and
+    re-derived by the frontier rounds; on cone overflow every row is
+    cleared and the dense from-scratch loop runs (what the non-frontier
+    delete computes). Same return contract as :func:`frontier_closure`."""
+    dist, rounds, qrounds, stats, _ = _frontier(
+        dist, adj, btt, backend, src, smask, f_cap, query_mask, max_rounds,
+        now, w_max, delete=True)
+    return dist, rounds, qrounds, stats

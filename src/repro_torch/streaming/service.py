@@ -1,6 +1,6 @@
 """Persistent-query service: the end-to-end serving driver — the
 counterpart of ``repro.streaming.service`` for the local executor with the
-dense layouts and ``frontier="off"``.
+dense dist layout, the dense or ELL adjacency and every frontier mode.
 
 Register RPQs (per-query engine choice + path semantics), ingest an
 ordered sgt stream with eager evaluation and lazy expiration (slide
@@ -9,16 +9,21 @@ execution model, §2, §5.1).
 
 Every query registered with ``engine="dense"`` folds into ONE
 :class:`~repro_torch.core.engine.BatchedDenseRPQEngine` on the CUDA card
-(``device=None``), whose closure rounds run kernel B1; reference engines
-(the paper-faithful pointer oracles) stay on the per-query host path.
+(``device=None``), whose closure rounds run kernel B1 (dense adjacency) or
+kernel B5 (``adj_layout="ell"``); reference engines (the paper-faithful
+pointer oracles) stay on the per-query host path.
 
 Kept from the reference: live register/deregister, :class:`IngestReport`
-(new pairs, deletion invalidations, RSPQ fallbacks), the RSPQ fallback for
-conflicted simple-path lanes, the bounded async-decode FIFO
-(``async_decode``/``async_depth``) and ``adaptive_batch``. Not yet ported,
-and raising with their ROADMAP item: ``snapshot``/``restore`` (A10),
-``executor="mesh"`` (A11), the frontier (A6) and the sparse layouts (A8,
-A9).
+(new pairs, deletion invalidations, RSPQ fallbacks, per-call frontier
+telemetry), the RSPQ fallback for conflicted simple-path lanes, the
+bounded async-decode FIFO (``async_decode``/``async_depth``),
+``adaptive_batch`` with its hold on a healthy frontier, the frontier modes
+(``frontier``/``frontier_cap``, per-interval deltas in
+:attr:`PersistentQueryService.frontier_log`) and the ELL adjacency
+(``adj_layout``/``ell_cap``, per-interval snapshots in
+:attr:`PersistentQueryService.adjacency_log`). Not yet ported, and raising
+with their ROADMAP item: ``snapshot``/``restore`` (A10),
+``executor="mesh"`` (A11) and ``dist_layout="row_sparse"`` (A9).
 """
 from __future__ import annotations
 
@@ -49,9 +54,9 @@ class IngestReport(Dict[str, Set[Tuple]]):
     """New result pairs per query (a plain dict), with the
     deletion-invalidated pairs in :attr:`invalidated`, the queries switched
     to the exact reference RSPQ path in :attr:`fallbacks` (name -> reason),
-    the frontier telemetry in :attr:`frontier_stats` (always empty: the
-    frontier is not ported) and the count of negative tuples the dense
-    group processed in :attr:`deletions`."""
+    the call's frontier telemetry in :attr:`frontier_stats` (empty with
+    ``frontier="off"``) and the count of negative tuples the dense group
+    processed in :attr:`deletions`."""
 
     def __init__(self, new: Dict[str, Set[Tuple]],
                  invalidated: Dict[str, Set[Tuple]],
@@ -155,6 +160,16 @@ class PersistentQueryService:
                 f"unknown executor {executor!r} (local | mesh | instance)")
         check_ported(frontier=frontier, adj_layout=adj_layout,
                      dist_layout=dist_layout)
+        self._frontier = frontier
+        self._frontier_cap = int(frontier_cap)
+        self._adj_layout = adj_layout
+        self._ell_cap = int(ell_cap)
+        #: (tuples_seen_so_far, adjacency_stats snapshot) history, one entry
+        #: per slide boundary when the layout is "ell"
+        self.adjacency_log: List[Tuple[int, Dict[str, object]]] = []
+        #: (tuples_seen_so_far, per-interval frontier stats delta) history
+        self.frontier_log: List[Tuple[int, Dict[str, object]]] = []
+        self._frontier_mark: Optional[Dict[str, object]] = None
         self.window = float(window)
         self.slide = float(slide)
         self._executor_spec = executor
@@ -181,7 +196,51 @@ class PersistentQueryService:
     def _make_executor(self, backend) -> Executor:
         if isinstance(self._executor_spec, Executor):
             return self._executor_spec
-        return LocalExecutor(backend, device=self._device)
+        return LocalExecutor(backend, frontier=self._frontier,
+                             frontier_cap=self._frontier_cap,
+                             adj_layout=self._adj_layout,
+                             ell_cap=self._ell_cap, device=self._device)
+
+    @staticmethod
+    def _stats_delta(cur: Dict[str, object],
+                     prev: Dict[str, object]) -> Dict[str, object]:
+        """Difference two frontier-stat snapshots: counters subtract,
+        level values (mode, cap, max_lane_rows) pass through, occupancy is
+        recomputed over the interval's own rows (None when the interval
+        did no dense-row-equivalent work)."""
+        level_keys = ("mode", "cap", "max_lane_rows")
+        delta = {
+            k: (cur[k] - prev.get(k, 0)
+                if isinstance(cur[k], int) and k not in level_keys
+                else cur[k])
+            for k in cur
+        }
+        dr = delta.get("dense_row_equiv", 0)
+        delta["occupancy"] = (delta.get("rows_relaxed", 0) / dr) if dr else None
+        return delta
+
+    @staticmethod
+    def _frontier_healthy(finterval: Dict[str, object]) -> bool:
+        """True when the interval's frontier telemetry shows cheap, live
+        dispatches: some ran, their row occupancy is under 5%, and none
+        overflowed to the dense loop. An interval with no signal is not
+        healthy."""
+        if not finterval or not finterval.get("dispatches", 0):
+            return False
+        occ = finterval.get("occupancy")
+        if occ is None:
+            return False
+        return occ < 0.05 and not finterval.get("fallbacks", 0)
+
+    def _frontier_delta(self) -> Dict[str, object]:
+        """Frontier-stat delta since the last mark (empty when the
+        frontier is off or no dense group exists)."""
+        if self._group is None or self._frontier == "off":
+            return {}
+        cur = self._group.executor.frontier_stats
+        delta = self._stats_delta(cur, self._frontier_mark or {})
+        self._frontier_mark = cur
+        return delta
 
     @property
     def queries(self) -> Dict[str, object]:
@@ -314,6 +373,11 @@ class PersistentQueryService:
         new_results: Dict[str, Set[Tuple]] = {name: set() for name in self.stats}
         invalidated: Dict[str, Set[Tuple]] = {name: set() for name in self.stats}
         fallbacks: Dict[str, str] = {}
+        # reading frontier_stats flushes the executor's queued counters (and
+        # may grow the "auto" capacity), at the same points as the reference
+        call_mark: Dict[str, object] = (
+            dict(self._group.executor.frontier_stats)
+            if self._group is not None and self._frontier != "off" else {})
         pending: Deque[PendingResults] = collections.deque()
         dense_buf: List = []               # adaptive micro-batch buffer
         del_buf: List = []                 # negative-tuple micro-batch buffer
@@ -363,10 +427,26 @@ class PersistentQueryService:
             del_buf.clear()
             self._maybe_fallback(fallbacks, lambda: resolve_pending(0))
 
-        def adapt_batch() -> None:
+        def mark_interval() -> Dict[str, object]:
+            """Per-interval telemetry: append the frontier delta since the
+            last slide boundary to :attr:`frontier_log` (and the adjacency
+            snapshot to :attr:`adjacency_log` under ELL); the delta steers
+            the batch size below."""
+            delta = self._frontier_delta()
+            seen = max((self.stats[s.name].tuples
+                        for _qi, s in self._group.live_items()),
+                       default=0) if self._group is not None else 0
+            if delta:
+                self.frontier_log.append((seen, delta))
+            if (self._group is not None
+                    and self._group.executor.adj_layout == "ell"):
+                self.adjacency_log.append(
+                    (seen, self._group.executor.adjacency_stats))
+            return delta
+
+        def adapt_batch(finterval: Dict[str, object]) -> None:
             """Steer the dense micro-batch size from the interval's no-op
-            relaxation tail (the frontier health check of the reference
-            never holds B here: the frontier is off)."""
+            relaxation tail, holding it while the frontier is healthy."""
             if not self._adaptive_batch or self._group is None:
                 return
             ex = self._group.executor
@@ -377,7 +457,10 @@ class PersistentQueryService:
                 if duqr > 0:
                     noop_frac = 1.0 - dqr / duqr
                     b = self._group.batch_size
-                    if noop_frac >= 0.3 and b < self._max_batch:
+                    # a live, healthy frontier already makes each dispatch
+                    # cheap in proportion to its dirty rows: hold B
+                    if noop_frac >= 0.3 and b < self._max_batch \
+                            and not self._frontier_healthy(finterval):
                         b *= 2
                     elif noop_frac < 0.1 and b > 1:
                         b //= 2
@@ -401,7 +484,7 @@ class PersistentQueryService:
                     eng.expire(sgt.ts)
                 while self._next_expiry <= sgt.ts:
                     self._next_expiry += self.slide
-                adapt_batch()
+                adapt_batch(mark_interval())
             # snapshot BEFORE the dense step: a fallback fired by this very
             # event must not re-feed the event to its new reference engine
             refs_this_event = list(self._ref_engines.items())
@@ -442,7 +525,11 @@ class PersistentQueryService:
             if st.latencies_us:
                 lat = sorted(st.latencies_us)
                 st.p99_us = lat[min(int(0.99 * len(lat)), len(lat) - 1)]
-        return IngestReport(new_results, invalidated, fallbacks, {},
+        fstats: Dict[str, object] = {}
+        if call_mark and self._group is not None:
+            fstats = self._stats_delta(
+                self._group.executor.frontier_stats, call_mark)
+        return IngestReport(new_results, invalidated, fallbacks, fstats,
                             deletions=deletions[0])
 
     def results(self, name: str) -> Set[Tuple]:

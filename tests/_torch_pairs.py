@@ -1,0 +1,94 @@
+"""Shared helpers of the port-vs-JAX frontier engine tests
+(tests/test_torch_frontier.py, tests/test_torch_ell_engine.py): a pair of
+engines built alike, the per-event drive and the end-state comparison."""
+import numpy as np
+
+from repro.core.automaton import compile_query as jax_compile
+from repro.core.engine import BatchedDenseRPQEngine as JaxEngine
+from repro.core.engine import RegisteredQuery as JaxQuery
+from repro.core.executor import LocalExecutor as JaxLocal
+from repro_torch.core.automaton import compile_query
+from repro_torch.core.engine import BatchedDenseRPQEngine, RegisteredQuery
+from repro_torch.core.executor import LocalExecutor
+from repro_torch.streaming.generators import gmark_like, so_like, with_deletions
+
+LABELS = ("a", "b", "c")
+SO_QUERIES = [("q1", "a2q . c2a*", "arbitrary"),
+              ("q2", "(a2q | c2a | c2q)+", "arbitrary"),
+              ("q3", "a2q . c2a* . c2q*", "simple"),
+              ("q4", "a2q? . c2a*", "arbitrary")]
+GMARK_QUERIES = [("g1", "a . b*", "arbitrary"),
+                 ("g2", "(a | b | c)*", "arbitrary"),
+                 ("g3", "(a . b)+", "simple")]
+
+
+def engine_pair(queries, frontier, layout, window=20.0, n_slots=8, batch_size=1):
+    """A JAX engine (``backend="jnp"``) and a port engine (CPU), each with
+    an explicit executor: ``frontier_cap=4``, ``ell_cap=2`` and an 8-entry
+    spill ring, so fallbacks, growth, spills, drains and re-packs fire."""
+    kw = dict(frontier=frontier, frontier_cap=4, adj_layout=layout,
+              ell_cap=2, spill_cap=8)
+    je = JaxEngine([JaxQuery(n, jax_compile(e), window, s) for n, e, s in queries],
+                   n_slots=n_slots, batch_size=batch_size,
+                   executor=JaxLocal("jnp", **kw))
+    te = BatchedDenseRPQEngine(
+        [RegisteredQuery(n, compile_query(e), window, s) for n, e, s in queries],
+        n_slots=n_slots, batch_size=batch_size,
+        executor=LocalExecutor(None, device="cpu", **kw))
+    return je, te
+
+
+def step(eng, sgt):
+    """One sgt into one engine: its new pairs or its invalidations."""
+    if sgt.op == "+":
+        return eng.insert(sgt.src, sgt.dst, sgt.label, sgt.ts)
+    return eng.delete(sgt.src, sgt.dst, sgt.label, sgt.ts)
+
+
+def drive(je, te, tuples, slide=2.0, stats_every=1, next_expiry=None):
+    """Feed both engines the same sgts with slide-boundary expiry; assert
+    per event the results, conflict flags and adjacency telemetry, and
+    every ``stats_every`` events the frontier telemetry (reading it
+    flushes the queued counters; 0 leaves the cadence alone). Returns the
+    next expiry time."""
+    nxt = slide if next_expiry is None else next_expiry
+    for i, sgt in enumerate(tuples):
+        if sgt.ts >= nxt:
+            je.expire(sgt.ts)
+            te.expire(sgt.ts)
+            while nxt <= sgt.ts:
+                nxt += slide
+        assert step(je, sgt) == step(te, sgt), (i, sgt)
+        assert je.per_query_conflicted == te.per_query_conflicted, (i, sgt)
+        assert te.executor.adjacency_stats == je.executor.adjacency_stats, i
+        if stats_every and i % stats_every == 0:
+            assert te.executor.frontier_stats == je.executor.frontier_stats, i
+    return nxt
+
+
+def assert_state_equal(je, te):
+    """Dense device state, interner, results and every counter equal."""
+    np.testing.assert_array_equal(te.executor.dense_dist().numpy(),
+                                  np.asarray(je.executor.dense_dist()))
+    np.testing.assert_array_equal(te.executor.dense_adj().numpy(),
+                                  np.asarray(je.executor.dense_adj()))
+    np.testing.assert_array_equal(te.batched_arrays.emitted.numpy(),
+                                  np.asarray(je.batched_arrays.emitted))
+    assert te.slot_of == je.slot_of
+    assert te.per_query_results == je.per_query_results
+    assert te.executor.frontier_stats == je.executor.frontier_stats
+    assert te.executor.adjacency_stats == je.executor.adjacency_stats
+    assert (te.total_rounds, te.total_query_rounds) == \
+        (je.total_rounds, je.total_query_rounds)
+    assert te.executor.unmasked_query_rounds_total == \
+        je.executor.unmasked_query_rounds_total
+
+
+def stream(kind):
+    """(queries, sgts) of a seeded SO-like or gMark-like stream with 6%
+    deletions, ~20 vertices."""
+    if kind == "so":
+        return SO_QUERIES, list(with_deletions(
+            so_like(n_vertices=24, n_edges=130, seed=3), ratio=0.06, seed=1))
+    return GMARK_QUERIES, list(with_deletions(
+        gmark_like(20, 130, list(LABELS), seed=4), ratio=0.06, seed=2))

@@ -1,5 +1,6 @@
-"""Tests that need the CUDA card: kernel B1 against its plain version on
-the card, and the port's engine on the card against itself on the CPU.
+"""Tests that need the CUDA card: kernels B1 and B5 against their plain
+versions on the card, and the port's engine on the card against itself on
+the CPU.
 
 Marked ``gpu``; each skips (from the ``cuda`` fixture, never at import or
 collection) where there is no card. On the card:
@@ -12,6 +13,10 @@ import torch
 
 from repro_torch.core.automaton import compile_query
 from repro_torch.core.engine import BatchedDenseRPQEngine, RegisteredQuery
+from repro_torch.core.contraction import resolve_backend
+from repro_torch.core.sparse_adj import ell_insert, pack_ell_dense
+from repro_torch.kernels.ell import ell as b5
+from repro_torch.kernels.ell.ref import ell_gather_contract_ref
 from repro_torch.kernels.maxmin import maxmin as b1
 from repro_torch.kernels.maxmin.ref import maxmin_matmul_fused_ref
 from repro_torch.streaming.generators import so_like, with_deletions
@@ -83,3 +88,113 @@ def test_engine_on_card_equals_engine_on_cpu(cuda):
             assert gpu.delete(*sgt.as_edge()) == cpu.delete(*sgt.as_edge())
     assert torch.equal(gpu.batched_arrays.dist.cpu(), cpu.batched_arrays.dist)
     assert b1.maxmin_matmul_fused.launches - launches == gpu.total_rounds > 0
+
+
+# tests/test_torch_kernels.py: B5_CASES (J, M, U, E)
+B5_CASES = [(2, 5, 12, 3), (1, 1, 9, 1), (3, 7, 13, 2), (4, 16, 33, 4),
+            (1, 130, 257, 8), (48, 4, 2048, 2), (6, 300, 700, 5)]
+
+
+def _ell_operands(rng, j, m, u, e, device):
+    d = rng.uniform(0.0, 1000.0, (j, m, u)).astype(np.float32)
+    d[rng.random(d.shape) > 0.4] = -np.inf
+    idx = rng.integers(0, u, (j, u, e)).astype(np.int32)
+    ts = rng.uniform(0.0, 1000.0, (j, u, e)).astype(np.float32)
+    ts[rng.random(ts.shape) > 0.6] = -np.inf
+    ts[:, : max(1, u // 7)] = -np.inf            # all-free rows
+    idx[:, :, 0] = idx[:, :, -1]                 # duplicate destinations
+    return (torch.from_numpy(d).to(device), torch.from_numpy(idx).to(device),
+            torch.from_numpy(ts).to(device))
+
+
+@pytest.mark.parametrize("J,M,U,E", B5_CASES)
+def test_b5_kernel_equals_plain_version(cuda, J, M, U, E):
+    rng = np.random.default_rng(J * 1000 + M + U + E)
+    d, idx, ts = _ell_operands(rng, J, M, U, E, cuda)
+    before = b5.ell_gather_contract.launches
+    out = b5.ell_gather_contract(d, idx, ts)
+    torch.cuda.synchronize()
+    assert b5.ell_gather_contract.launches == before + 1
+    assert torch.equal(out, ell_gather_contract_ref(d, idx, ts))
+
+
+def test_b5_refuses_bad_operands(cuda):
+    d = torch.zeros((2, 3, 4), device=cuda)
+    idx = torch.zeros((2, 4, 2), dtype=torch.int32, device=cuda)
+    ts = torch.zeros((2, 4, 2), device=cuda)
+    with pytest.raises(TypeError):
+        b5.ell_gather_contract(d, idx.long(), ts)
+    with pytest.raises(TypeError):
+        b5.ell_gather_contract(d.half(), idx, ts)
+    with pytest.raises(ValueError, match="contiguous"):
+        b5.ell_gather_contract(d.transpose(1, 2).contiguous().transpose(1, 2),
+                               idx, ts)
+
+
+def test_b5_with_a_full_spill_ring(cuda):
+    """contract_rows_ell on the card with every ring entry live: kernel B5
+    plus the spill fold equal the plain backend on the same inputs."""
+    rng = np.random.default_rng(5)
+    n, labels, cap = 40, 3, 2
+    dense = torch.full((labels, n, n), float("-inf"), device=cuda)
+    ell = pack_ell_dense(dense, cap, 16)
+    k = 0
+    while int(ell.spill_ptr) < 16:       # overfull rows spill into the ring
+        u, l = int(rng.integers(0, 4)), int(rng.integers(0, labels))
+        v = int(rng.integers(0, n))
+        ell = ell_insert(ell, [u], [v], [l],
+                         torch.tensor([float(k + 1)], device=cuda), [True])
+        k += 1
+    assert bool((ell.spill_ts > float("-inf")).all())
+    d = torch.from_numpy(rng.uniform(0, 500, (6, 9, n)).astype(np.float32)).to(cuda)
+    labs = torch.tensor([0, 1, 2, 0, 1, 2], device=cuda)
+    before = b5.ell_gather_contract.launches
+    out = resolve_backend("cuda").contract_rows_ell(d, ell, labs)
+    torch.cuda.synchronize()
+    assert b5.ell_gather_contract.launches == before + 1
+    assert torch.equal(out, resolve_backend("plain").contract_rows_ell(d, ell, labs))
+
+
+@pytest.mark.parametrize("adj_layout", ["ell", "dense"])
+def test_frontier_engine_on_card_equals_engine_on_cpu(cuda, adj_layout):
+    """frontier="auto" from a tiny capacity (fallbacks, growth, cone
+    deletes) and, for ELL, a tiny degree capacity (rows spill into the
+    ring): per event and in the end state, the card equals the CPU, and on
+    the card
+    the ELL path launches B5 once per round and B1 never."""
+    queries = [("q1", "a2q . c2a*", "arbitrary"),
+               ("q2", "(a2q | c2a | c2q)+", "arbitrary")]
+
+    def engine(device):
+        return BatchedDenseRPQEngine(
+            [RegisteredQuery(n, compile_query(e), 20.0, s) for n, e, s in queries],
+            n_slots=16, batch_size=1, frontier="auto", frontier_cap=2,
+            adj_layout=adj_layout, ell_cap=2, device=device)
+
+    gpu, cpu = engine(cuda), engine("cpu")
+    stream = with_deletions(so_like(n_vertices=24, n_edges=160, seed=4),
+                            ratio=0.05, seed=2)
+    launches = (b1.maxmin_matmul_fused.launches, b5.ell_gather_contract.launches)
+    nxt = 2.0
+    for sgt in stream:
+        if sgt.ts >= nxt:
+            gpu.expire(sgt.ts)
+            cpu.expire(sgt.ts)
+            while nxt <= sgt.ts:
+                nxt += 2.0
+        if sgt.op == "+":
+            assert gpu.insert(*sgt.as_edge()) == cpu.insert(*sgt.as_edge())
+        else:
+            assert gpu.delete(*sgt.as_edge()) == cpu.delete(*sgt.as_edge())
+    assert torch.equal(gpu.executor.dense_dist().cpu(), cpu.executor.dense_dist())
+    assert torch.equal(gpu.executor.dense_adj().cpu(), cpu.executor.dense_adj())
+    assert gpu.executor.frontier_stats == cpu.executor.frontier_stats
+    assert gpu.executor.adjacency_stats == cpu.executor.adjacency_stats
+    st = gpu.executor.frontier_stats
+    assert st["fallbacks"] >= 1 and st["cap"] > 2
+    b1_runs = b1.maxmin_matmul_fused.launches - launches[0]
+    b5_runs = b5.ell_gather_contract.launches - launches[1]
+    if adj_layout == "ell":
+        assert (b1_runs, b5_runs) == (0, gpu.total_rounds)
+    else:
+        assert (b1_runs, b5_runs) == (gpu.total_rounds, 0)

@@ -2,8 +2,9 @@
 scenario of examples/streaming_service.py (mixed dense/reference engines,
 both path semantics, 2% explicit deletions, two ingest calls) scaled down
 and without the snapshot, compared report for report. Also: the RSPQ
-fallback, the async-decode FIFO, adaptive batching, the options not yet
-ported, and that importing the port loads neither JAX nor ``repro``."""
+fallback, the async-decode FIFO, adaptive batching, the frontier and ELL
+options with their telemetry logs, the options not yet ported, and that
+importing the port loads neither JAX nor ``repro``."""
 import subprocess
 import sys
 from pathlib import Path
@@ -84,9 +85,14 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="A11"):
         PersistentQueryService(window=5.0, slide=1.0, executor="mesh",
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        PersistentQueryService(window=5.0, slide=1.0, frontier="auto",
+    PersistentQueryService(window=5.0, slide=1.0, frontier="auto",
+                           adj_layout="ell", device="cpu")
+    with pytest.raises(NotImplementedError, match="A9"):
+        PersistentQueryService(window=5.0, slide=1.0, dist_layout="row_sparse",
                                device="cpu")
+    for kw in ({"frontier": "sideways"}, {"adj_layout": "csr"}):
+        with pytest.raises(ValueError):
+            PersistentQueryService(window=5.0, slide=1.0, device="cpu", **kw)
     svc = PersistentQueryService(window=5.0, slide=1.0, device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         svc.snapshot("unused", step=0)
@@ -96,9 +102,34 @@ def test_unported_paths_raise():
         svc.register("q", "a*", backend="mxu_bucket")
 
 
+@pytest.mark.parametrize("adj_layout", ["ell", "dense"])
+def test_frontier_service_report_for_report(adj_layout):
+    """``frontier="auto"`` with a tiny capacity and adaptive batching over
+    three ingest calls: IngestReports (with their per-call frontier
+    telemetry), frontier_log, adjacency_log and batch_size_log equal."""
+    kw = dict(frontier="auto", frontier_cap=2, adj_layout=adj_layout,
+              ell_cap=2, adaptive_batch=True, max_batch=8)
+    js, ts = _services(**kw)
+    tuples = list(with_deletions(so_like(n_vertices=24, n_edges=150, seed=8),
+                                 ratio=0.04, seed=3))
+    for part in (tuples[:40], tuples[40:100], tuples[100:]):
+        rj, rt = js.ingest(Stream(part)), ts.ingest(Stream(part))
+        _assert_reports_equal(rj, rt)
+        assert rt.frontier_stats == rj.frontier_stats
+    _assert_services_equal(js, ts)
+    assert ts.frontier_log == js.frontier_log != []
+    assert ts.adjacency_log == js.adjacency_log
+    assert ts.batch_size_log == js.batch_size_log
+    assert (ts.adjacency_log != []) == (adj_layout == "ell")
+    group = ts.queries["notify"]
+    st = group.executor.frontier_stats
+    assert st["fallbacks"] >= 1 and st["cap"] > 2 and st["delete_dispatches"] >= 1
+
+
 def test_import_loads_neither_jax_nor_the_reference_package():
     code = ("import sys, repro_torch, repro_torch.core, "
-            "repro_torch.streaming.service, repro_torch.kernels.maxmin.maxmin; "
+            "repro_torch.streaming.service, repro_torch.kernels.maxmin.maxmin, "
+            "repro_torch.kernels.ell.ell, repro_torch.core.sparse_adj; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.')]; "
             "assert not bad, bad")
