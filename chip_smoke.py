@@ -7,11 +7,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. device: the card's name, count, and ``nvidia-smi`` name and power
    limit. Fails without CUDA, and when run outside a checkout of the repo.
-2. build: kernels B1 (``src/repro_torch/csrc/maxmin.cu``) and B5
-   (``src/repro_torch/csrc/ell.cu``) with nvcc for sm_90a, one nvcc each,
-   started together; prints the build seconds and ptxas' registers,
-   shared memory and spills.
-3. kernel: B1 and B5 against their plain PyTorch versions on the card
+2. build: kernels B1 (``src/repro_torch/csrc/maxmin.cu``), B5
+   (``src/repro_torch/csrc/ell.cu``) and B6 (``src/repro_torch/csrc/
+   rowsparse.cu``) with nvcc for sm_90a, one nvcc each, started together;
+   prints the build seconds and ptxas' registers, shared memory and spills.
+3. kernel: B1, B5 and B6 against their plain PyTorch versions on the card
    with ``torch.equal`` (tolerance 0: max and min never reassociate) on
    the test shapes (B1 also in float16), B1 at the dense path's shape and
    at the frontier's skinny (J=48, m in {4, 32}, 2048, 2048) slabs; then
@@ -35,8 +35,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    with the 11 Table-2 queries as one dense group at n_slots=8192, each
    also a reference RAPQ engine, fed I insert sgts of
    ``so_like(n_vertices=8192, rate=50)`` (about 1000 live edges in a 20 s
-   window) with 2% deletions, B=1. Asserts every query's results equal
-   its reference engine's, that B5 was launched once per closure round
+   window) with 2% deletions, B=1. Asserts every query's results and
+   per-event result log equal its reference engine's, that B5 was
+   launched once per closure round
    and B1 never, that the frontier ran and also fell back (dispatches >
    fallbacks >= 1), that a delete went through the cone, and that the
    spill ring drained and re-packed.
@@ -47,6 +48,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    bound, the plain version and the two-call PyTorch yardstick
    (``torch.minimum`` of the broadcast candidates, then one
    ``scatter_reduce_(..., "amax")``), which the port never calls.
+8. end to end, row-sparse dist: phase 6's service and stream again with
+   ``dist_layout="row_sparse", dist_cap=4`` (rows overflow into the
+   table, drains grow and re-pack). Asserts every query's per-event result
+   log equals phase 6's and the reference engine's, the same
+   frontier dispatches and fallbacks as phase 6 (at least one: the densify
+   round trip runs), at least one drain and one re-pack with nothing lost,
+   B6 launched once per frontier insert dispatch that did not fall back,
+   B5 once per closure round and B1 never.
+9. B6 at the path's shapes: on phase 8's final state (the Q*F slot rows
+   with the most entries, E = N*K) and at a synthetic M=4096, C=64,
+   E=32768, ``torch.equal`` against the plain version, and CUDA-event
+   times beside the bound, the plain version and the PyTorch yardstick
+   (``torch.full(-inf).scatter_reduce_(1, idx, ts, "amax")``), which the
+   port never calls.
 
 The last three lines of standard output are the kernels JSON line, the
 ``nvidia-smi`` name/power-limit line, and the ``{"ok": true, ...}`` line.
@@ -78,9 +93,12 @@ SHAPES = [(8, 8, 8), (128, 128, 128), (130, 70, 200), (1, 256, 33),
 ODD_SHAPES = [(3, 4, 40, 40), (5, 16, 33, 33), (2, 1, 7, 19), (7, 23, 5, 64),
               (1, 130, 70, 30)]
 
-# tests/test_torch_gpu.py: B5_CASES (J, M, U, E)
+# tests/test_torch_gpu.py: B5_CASES (J, M, U, E), B6_CASES (M, C, E)
 B5_CASES = [(2, 5, 12, 3), (1, 1, 9, 1), (3, 7, 13, 2), (4, 16, 33, 4),
             (1, 130, 257, 8), (48, 4, 2048, 2), (6, 300, 700, 5)]
+B6_CASES = [(12, 4, 30), (5, 1, 33), (9, 16, 257), (7, 8, 40), (3, 64, 100),
+            (40, 256, 4097), (17, 128, 2049), (192, 4, 32768)]
+KERNELS = ("maxmin", "ell", "rowsparse")
 SKINNY_M = (4, 32)        # frontier rows of B1's skinny slabs
 
 PROFILE_SGTS = 24         # sgts of the traced window after the main run
@@ -182,6 +200,24 @@ def trace_window(torch, run, n_sgts: int, tag: str, top: int = 6) -> None:
         print(f"[{tag}]   {us / 1e3:10.3f} ms  {key[:90]}", flush=True)
 
 
+def by_event(log):
+    """A result log of (event time, pair) as {event time: pairs}: the
+    per-event result stream, whatever order an event emits its pairs in."""
+    out = {}
+    for t, pair in log:
+        out.setdefault(float(t), set()).add(pair)
+    return out
+
+
+def bound_b6_ms(m: int, c: int, e: int, live_slots: int):
+    """(bound in ms, "bytes" | "operations") of one row-sparse gather: the
+    (M, E) output written once and idx/ts (M, C) read once, against one
+    max per finite slot this run's data holds."""
+    t_bytes = (4 * m * e + 8 * m * c) / PEAK_BYTES
+    t_ops = float(live_slots) / PEAK_F32_OPS
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def print_build_log(name: str, info) -> None:
     for line in str(info["log"]).splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -212,7 +248,7 @@ def main() -> None:
     if args.edges < 256 or args.ell_inserts < 256:
         fail("--edges and --ell-inserts must be at least 256")
     if not all((ROOT / "src" / "repro_torch" / "csrc" / f"{k}.cu").is_file()
-               for k in ("maxmin", "ell")):
+               for k in KERNELS):
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from a "
              "checkout of the repo")
     sys.path.insert(0, str(ROOT / "src"))
@@ -237,18 +273,20 @@ def main() -> None:
     from repro_torch.kernels.ell.ref import ell_gather_contract_ref
     from repro_torch.kernels.maxmin import maxmin as b1
     from repro_torch.kernels.maxmin.ref import maxmin_matmul_fused_ref
+    from repro_torch.kernels.rowsparse import rowsparse as b6
+    from repro_torch.kernels.rowsparse.ref import rowsparse_gather_ref
     from repro_torch.streaming.generators import so_like, with_deletions
     from repro_torch.streaming.service import PersistentQueryService, RSPQFallback
     from repro_torch.streaming.stream import SGT, Stream
 
     # -- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
-    build.build_all(["maxmin", "ell"])   # one nvcc each, started together
-    for name in ("maxmin", "ell"):
+    build.build_all(KERNELS)   # one nvcc each, started together
+    for name in KERNELS:
         build.load(name)
-    print(f"[build] maxmin.cu and ell.cu: {time.perf_counter() - t0:.3f} s "
-          "wall", flush=True)
-    for name in ("maxmin", "ell"):
+    print(f"[build] maxmin.cu, ell.cu and rowsparse.cu: "
+          f"{time.perf_counter() - t0:.3f} s wall", flush=True)
+    for name in KERNELS:
         info = build.BUILD_INFO[name]
         print(f"[build] {name}.cu: nvcc {info['seconds']:.3f} s -> "
               f"{info['path']}", flush=True)
@@ -316,6 +354,26 @@ def main() -> None:
         ts[:, : max(1, u // 7)] = float("-inf")       # all-free rows
         check_b5(d, idx, ts, f"J={j} M={m} U={u} E={e}")
     print(f"[kernel] B5 == plain (torch.equal) on {len(B5_CASES)} test shapes",
+          flush=True)
+
+    rs_err = 0.0
+
+    def check_b6(idx, ts, e: int, what: str) -> None:
+        nonlocal rs_err
+        out = b6.rowsparse_gather(idx, ts, e)
+        torch.cuda.synchronize()
+        ref = rowsparse_gather_ref(idx, ts, e)
+        if not torch.equal(out, ref):   # equal means max |err| 0.0 exactly
+            err = (out - ref).abs().masked_fill(out == ref, 0.0)
+            rs_err = max(rs_err, float(err.max()))
+            fail(f"B6 differs from its plain version at {what}: max |err| "
+                 f"{rs_err}")
+
+    for (m, c, e) in B6_CASES:
+        idx, ts = b6_operands(torch, gen, m, c, e)
+        check_b6(idx, ts, e, f"M={m} C={c} E={e}")
+    print(f"[kernel] B6 == plain (torch.equal) on {len(B6_CASES)} test shapes "
+          "(duplicate stale keys, all-free rows, C=1, E off the 2048 tile)",
           flush=True)
 
     # the service's dense group fixes the main path's shapes (J rows, N slots)
@@ -460,6 +518,15 @@ def main() -> None:
     print(f"[kernel] B5 == plain (torch.equal) on every shape; max |err| "
           f"{ell_err}", flush=True)
 
+    # -- 8. end to end: the row-sparse dist, phase 6's service and stream -------
+    rs = ell_phase(torch, queries, args.ell_inserts, device=None,
+                   dist_layout="row_sparse", dist_cap=4, against=ell)
+
+    # -- 9. B6 at the path's shapes, on this run's operands ---------------------
+    b6_rows = b6_at_path_shapes(torch, gen, rs, check_b6)
+    print(f"[kernel] B6 == plain (torch.equal) on every shape; max |err| "
+          f"{rs_err}", flush=True)
+
     ms, bms, by, plain = timings[N]
     e5 = b5_rows["dense"]
     print(json.dumps({"kernels": [{
@@ -487,28 +554,48 @@ def main() -> None:
         "bound_by": e5["bound_by"],
         "library_ms": e5["library_ms"],
         "shape": e5["shape"],
+    }, {
+        "name": "B6 rowsparse_gather",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/rowsparse.cu",
+        "replaces": "src/repro/kernels/rowsparse/rowsparse.py:40",
+        "launches": rs["b6_launches"],
+        "max_abs_err": rs_err,
+        "ms": b6_rows["path"]["ms"],
+        "plain_ms": b6_rows["path"]["plain_ms"],
+        "bound_ms": b6_rows["path"]["bound_ms"],
+        "bound_by": b6_rows["path"]["bound_by"],
+        "library_ms": b6_rows["path"]["library_ms"],
+        "shape": b6_rows["path"]["shape"],
     }]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
 
 
-def ell_phase(torch, queries, n_inserts: int, device=None, n_slots: int = 8192):
-    """Phase 6: the frontier + ELL service path at ``n_slots`` against the
-    reference RAPQ engines, with its launch counts, telemetry and checks.
-    ``device`` and ``n_slots`` let the same code rehearse on the CPU at a
-    small size; the script itself runs it on the card at 8192. Returns
-    the group's final operands for phase 7 and the counts."""
+def ell_phase(torch, queries, n_inserts: int, device=None, n_slots: int = 8192,
+              dist_layout: str = "dense", dist_cap: int = 16, against=None):
+    """Phase 6 (``dist_layout="dense"``) and phase 8 (``"row_sparse"``):
+    the frontier + ELL service path at ``n_slots`` against the reference
+    RAPQ engines, with its launch counts, telemetry and checks; phase 8
+    also against phase 6's returned run (``against``). ``device`` and
+    ``n_slots`` let the same code rehearse on the CPU at a small size; the
+    script itself runs it on the card at 8192. Returns the run's result
+    logs and counts, and its final operands for phase 7 or 9."""
     from repro_torch.kernels.ell import ell as b5
     from repro_torch.kernels.maxmin import maxmin as b1
+    from repro_torch.kernels.rowsparse import rowsparse as b6
     from repro_torch.streaming.generators import so_like, with_deletions
     from repro_torch.streaming.service import PersistentQueryService
     from repro_torch.streaming.stream import Stream
 
     on_card = device is None
+    row_sparse = dist_layout == "row_sparse"
+    tag = "rs" if row_sparse else "ell"
     window, slide = 20.0, 2.0
     svc = PersistentQueryService(window=window, slide=slide, frontier="auto",
                                  frontier_cap=4, adj_layout="ell", ell_cap=2,
+                                 dist_layout=dist_layout, dist_cap=dist_cap,
                                  device=device)
     for name, expr in queries.items():
         svc.register(name, expr, engine="dense", n_slots=n_slots, batch_size=1)
@@ -523,10 +610,12 @@ def ell_phase(torch, queries, n_inserts: int, device=None, n_slots: int = 8192):
     cut = [i for i, s in enumerate(all_tuples) if s.op == "+"][n_inserts]
     tuples, tail = all_tuples[:cut], all_tuples[cut:]
     n_del = sum(1 for s in tuples if s.op == "-")
-    print(f"[ell] frontier='auto' F=4, adj_layout='ell' E=2, spill ring "
-          f"{ex.spill_cap}: {Q} lanes, J={J}, K={K}, N={N}; {n_inserts} inserts "
-          f"+ {n_del} deletions = {len(tuples)} sgts over "
-          f"{tuples[-1].ts:.3f} s of stream time", flush=True)
+    print(f"[{tag}] frontier='auto' F=4, adj_layout='ell' E=2, spill ring "
+          f"{ex.spill_cap}, dist_layout={dist_layout!r}"
+          f"{f' dist_cap={dist_cap}' if row_sparse else ''}: {Q} lanes, J={J}, "
+          f"K={K}, N={N}; {n_inserts} inserts + {n_del} deletions = "
+          f"{len(tuples)} sgts over {tuples[-1].ts:.3f} s of stream time",
+          flush=True)
     rounds0, steps0, syncs0 = ex.rounds_total, ex.steps, group.host_syncs
     f0 = ex.frontier_stats
     if on_card:
@@ -534,6 +623,7 @@ def ell_phase(torch, queries, n_inserts: int, device=None, n_slots: int = 8192):
         torch.cuda.reset_peak_memory_stats()
     b1.maxmin_matmul_fused.launches = 0
     b5.ell_gather_contract.launches = 0
+    b6.rowsparse_gather.launches = 0
     t0 = time.perf_counter()
     report = svc.ingest(Stream(tuples), record_latency=True)
     if on_card:
@@ -541,6 +631,7 @@ def ell_phase(torch, queries, n_inserts: int, device=None, n_slots: int = 8192):
     wall = time.perf_counter() - t0
     launches = b5.ell_gather_contract.launches
     b1_launches = b1.maxmin_matmul_fused.launches
+    b6_launches = b6.rowsparse_gather.launches
     rounds = ex.rounds_total - rounds0
     steps = ex.steps - steps0
     syncs = group.host_syncs - syncs0
@@ -550,24 +641,52 @@ def ell_phase(torch, queries, n_inserts: int, device=None, n_slots: int = 8192):
                                   "seed_rows", "dense_row_equiv") else v)
            for k, v in ex.frontier_stats.items()}
     ast = ex.adjacency_stats
+    logs = {name: list(group.per_query_log[group.lane_of(name)])
+            for name in queries}
 
     if b1_launches:
-        fail(f"kernel B1 ran {b1_launches} times on the ELL path")
+        fail(f"kernel B1 ran {b1_launches} times on the {tag} path")
     if on_card and (launches <= 0 or launches != rounds):
         fail(f"B5 launches ({launches}) != closure rounds run ({rounds})")
     mismatched = [name for name in queries
-                  if svc.results(name) != svc.results(f"{name}_ref")]
+                  if svc.results(name) != svc.results(f"{name}_ref")
+                  or by_event(logs[name])
+                  != by_event(svc.queries[f"{name}_ref"].result_log)]
     if mismatched:
-        fail(f"ELL-path results differ from the reference RAPQ for {mismatched}")
+        fail(f"{tag}-path results differ from the reference RAPQ for {mismatched}")
     n_results = {name: len(svc.results(name)) for name in queries}
     if sum(n_results.values()) == 0:
-        fail("no query produced any result on the ELL path")
+        fail(f"no query produced any result on the {tag} path")
     if not fst["dispatches"] > fst["fallbacks"] >= 1:
         fail(f"expected frontier dispatches > fallbacks >= 1, got {fst}")
     if fst["delete_dispatches"] - fst["delete_fallbacks"] < 1:
         fail(f"no delete went through the cone: {fst}")
     if ast["spill_drains"] < 1 or ast["repacks"] < 1:
         fail(f"the spill ring never drained and re-packed: {ast}")
+    dst = ex.dist_stats
+    if row_sparse:
+        inserts_kept = ((fst["dispatches"] - fst["delete_dispatches"])
+                        - (fst["fallbacks"] - fst["delete_fallbacks"]))
+        if on_card and b6_launches != inserts_kept:
+            fail(f"B6 launches ({b6_launches}) != frontier insert dispatches "
+                 f"that did not fall back ({inserts_kept})")
+        lost = int(ex.arrays.dist.lost)
+        if dst["drains"] < 1 or dst["repacks"] < 1 or lost or dst["lost"]:
+            fail(f"expected >= 1 drain and re-pack and nothing lost: {dst}, "
+                 f"device lost {lost}")
+    elif b6_launches:
+        fail(f"kernel B6 ran {b6_launches} times on the dense-dist path")
+    if against is not None:
+        if logs != against["logs"]:
+            fail(f"{tag} per-event result logs differ from phase 6's for "
+                 f"{[n for n in queries if logs[n] != against['logs'][n]]}")
+        if report.invalidated != against["invalidated"]:
+            fail(f"{tag} deletion invalidations differ from phase 6's")
+        for key in ("dispatches", "fallbacks", "delete_dispatches",
+                    "delete_fallbacks", "seed_rows", "max_lane_rows"):
+            if fst[key] != against["frontier"][key]:
+                fail(f"{tag} frontier {key} {fst[key]} != phase 6's "
+                     f"{against['frontier'][key]}")
 
     lat = sorted(svc.stats["Q1"].latencies_us)
     p50 = lat[len(lat) // 2]
@@ -575,48 +694,126 @@ def ell_phase(torch, queries, n_inserts: int, device=None, n_slots: int = 8192):
     dense_s = sum(svc.stats["Q1"].latencies_us) / 1e6
     ref_s = sum(sum(svc.stats[f"{name}_ref"].latencies_us)
                 for name in queries) / 1e6
-    print(f"[ell] {len(tuples)} sgts in {wall:.3f} s = {len(tuples) / wall:.3f} "
+    print(f"[{tag}] {len(tuples)} sgts in {wall:.3f} s = {len(tuples) / wall:.3f} "
           f"sgts/s; dispatch p50 {p50 / 1e3:.3f} ms, p99 {p99 / 1e3:.3f} ms; "
           f"slowest five {[round(x / 1e3, 3) for x in lat[-5:]]} ms",
           flush=True)
-    print(f"[ell] {steps} dispatches, {rounds} closure rounds ({rounds / steps:.3f} "
+    print(f"[{tag}] {steps} dispatches, {rounds} closure rounds ({rounds / steps:.3f} "
           f"per dispatch), host syncs {syncs / steps:.3f} per dispatch; B5 "
-          f"launches {launches} (one per round), B1 launches {b1_launches}",
-          flush=True)
-    print(f"[ell] frontier: {fst['dispatches']} dispatches, {fst['fallbacks']} "
+          f"launches {launches} (one per round), B1 launches {b1_launches}, "
+          f"B6 launches {b6_launches}", flush=True)
+    print(f"[{tag}] frontier: {fst['dispatches']} dispatches, {fst['fallbacks']} "
           f"dense fallbacks ({fst['delete_dispatches']} deletes, "
           f"{fst['delete_fallbacks']} of them fell back); rows relaxed "
           f"{fst['rows_relaxed']} = {fst['rows_relaxed'] / max(steps, 1):.3f} per "
           f"dispatch ({fst['dense_row_equiv']} for the dense loop); seed rows "
           f"{fst['seed_rows']}, largest lane frontier {fst['max_lane_rows']}; "
           f"final frontier_cap {fst['cap']}", flush=True)
-    print(f"[ell] adjacency: final ell_cap {ast['ell_cap']}, spill ring "
+    print(f"[{tag}] adjacency: final ell_cap {ast['ell_cap']}, spill ring "
           f"{ast['spill_cap']}, {ast['spill_drains']} drains, {ast['repacks']} "
           f"re-packs, {ast['live_edges']} live edges at the last re-pack, "
           f"{ast['adj_bytes']} bytes", flush=True)
-    print(f"[ell] wall split (host clock): dense-group dispatches {dense_s:.3f} s, "
+    if row_sparse:
+        print(f"[{tag}] dist: final dist_cap {dst['dist_cap']}, ovf_cap "
+              f"{dst['ovf_cap']}, {dst['drains']} drains, {dst['repacks']} "
+              f"re-packs, lost {dst['lost']}, {dst['live_entries']} live entries "
+              f"at the last re-pack, occupancy {dst['occupancy']}, "
+              f"{dst['dist_bytes']} bytes", flush=True)
+    print(f"[{tag}] wall split (host clock): dense-group dispatches {dense_s:.3f} s, "
           f"11 reference RAPQ engines {ref_s:.3f} s, rest "
           f"{wall - dense_s - ref_s:.3f} s; peak device memory {peak} bytes "
           f"({peak / 2**30:.3f} GiB)", flush=True)
-    print(f"[ell] results per query: {n_results}; deletions {report.deletions}; "
-          "results == reference RAPQ for all 11 queries", flush=True)
+    print(f"[{tag}] results per query: {n_results}; deletions {report.deletions}; "
+          f"results and per-event result logs == reference RAPQ for all 11 "
+          f"queries"
+          f"{'; per-event result logs == phase 6' if against else ''}",
+          flush=True)
 
     if on_card:
         trace_window(torch, lambda: svc.ingest(Stream(tail), record_latency=True),
-                     len(tail), "ell-trace", top=10)
+                     len(tail), f"{tag}-trace", top=10)
 
-    # the final operands of a round, for phase 7
+    out = {"launches": launches, "b6_launches": b6_launches, "logs": logs,
+           "invalidated": report.invalidated, "frontier": fst,
+           "frontier_cap": ex.frontier_cap}
     a = ex.arrays
-    btt = group.btt
-    d = a.dist[btt.qidx, :, :, btt.src].contiguous()          # (J, N, N)
-    labs = btt.lab
-    idx, ts = a.adj.idx[labs].contiguous(), a.adj.ts[labs].contiguous()
-    frontier_cap = ex.frontier_cap
+    if row_sparse:
+        # phase 9's operands: each lane's F slot rows with the most entries
+        sd = a.dist
+        q, n, c = sd.idx.shape
+        top = torch.topk((sd.ts > float("-inf")).sum(dim=2), ex.frontier_cap,
+                         dim=1).indices
+        key = (torch.arange(q, device=top.device)[:, None] * n + top).reshape(-1)
+        out.update(sid=sd.idx.view(q * n, c).index_select(0, key).contiguous(),
+                   sts=sd.ts.view(q * n, c).index_select(0, key).contiguous(),
+                   e=n * sd.k)
+    else:
+        # the final operands of a round, for phase 7
+        btt = group.btt
+        labs = btt.lab
+        out.update(d=a.dist[btt.qidx, :, :, btt.src].contiguous(),  # (J, N, N)
+                   idx=a.adj.idx[labs].contiguous(),
+                   ts=a.adj.ts[labs].contiguous())
     del svc, group, ex, a
     if on_card:
         torch.cuda.empty_cache()
-    return {"launches": launches, "d": d, "idx": idx, "ts": ts,
-            "frontier_cap": frontier_cap}
+    return out
+
+
+def b6_operands(torch, gen, m: int, c: int, e: int):
+    """Random slot rows on the card: keys in [0, E), a quarter of the slots
+    free (-inf, stale keys), duplicate keys in odd slots, every third row
+    all free."""
+    idx = torch.randint(0, e, (m, c), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    if c > 1:
+        idx[:, 1::2] = idx[:, 0:1]
+    ts = torch.rand((m, c), generator=gen, device="cuda") * 1000.0
+    ts[torch.rand((m, c), generator=gen, device="cuda") < 0.25] = float("-inf")
+    ts[::3] = float("-inf")
+    return idx, ts
+
+
+def b6_at_path_shapes(torch, gen, rs, check_b6):
+    """Phase 9: B6 against its plain version and timed on phase 8's final
+    slot rows (Q*F, C) and at a synthetic M=4096, C=64, E=32768, beside the
+    bound, the plain version and the one-call PyTorch yardstick. Frees the
+    operands."""
+    from repro_torch.kernels.rowsparse import rowsparse as b6
+    from repro_torch.kernels.rowsparse.ref import rowsparse_gather_ref
+
+    e = rs.pop("e")
+    path = (rs.pop("sid"), rs.pop("sts"))
+    rows = {}
+    for tag, (idx, ts), reps in (("path", path, 50),
+                                 ("synthetic", b6_operands(torch, gen, 4096, 64,
+                                                           32768), 20)):
+        m, c = idx.shape
+        check_b6(idx, ts, e, f"the {tag} shape M={m} C={c} E={e}")
+        idx_l = idx.long()
+
+        def yardstick():
+            out = torch.full((m, e), float("-inf"), device=ts.device)
+            return out.scatter_reduce_(1, idx_l, ts, "amax", include_self=True)
+
+        if not torch.equal(yardstick(), b6.rowsparse_gather(idx, ts, e)):
+            fail(f"the yardstick differs from B6 at the {tag} shape")
+        torch.cuda.synchronize()
+        ms = time_cuda(torch, lambda: b6.rowsparse_gather(idx, ts, e), reps)
+        plain = time_cuda(torch, lambda: rowsparse_gather_ref(idx, ts, e),
+                          max(1, reps // 5))
+        lib = time_cuda(torch, yardstick, max(1, reps // 5))
+        live = int((ts > float("-inf")).sum())
+        bms, by = bound_b6_ms(m, c, e, live)
+        rows[tag] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                     "bound_ms": bms, "bound_by": by, "shape": [m, c, e]}
+        print(f"[kernel] B6 {tag} shape M={m} C={c} E={e} ({live} live slots): "
+              f"{ms:.3f} ms, bound {bms:.3f} ms ({by}), {100 * bms / ms:.1f}% of "
+              f"bound; plain {plain:.3f} ms; yardstick {lib:.3f} ms", flush=True)
+        del idx, ts, idx_l
+    del path
+    torch.cuda.empty_cache()
+    return rows
 
 
 def b5_at_path_shapes(torch, ell, check_b5):

@@ -1,17 +1,18 @@
 """Core of the port: queries, the batched dense engine and its executor.
 
-Public API (the dense-dist slice of ``repro.core``: dense or ELL
-adjacency, frontier off, on or auto):
+Public API (the local-executor slice of ``repro.core``: dense or ELL
+adjacency, dense or row-sparse dist, frontier off, on or auto):
     compile_query(expr)            -- regex -> minimal DFA (+ RSPQ metadata)
     RAPQ / RSPQ                    -- paper-faithful pointer engines (oracle)
     BatchedDenseRPQEngine          -- Q queries, one shared-adjacency step
     DenseRPQEngine                 -- the Q=1 view
-    resolve_backend                -- "cuda" (kernels B1/B5, default) | "plain"
+    resolve_backend                -- "cuda" (kernels B1/B5/B6, default) | "plain"
     carry_reference_state          -- load a JAX engine's exported state
+    carry_reference_dist           -- and its row-sparse dist, leaf for leaf
 """
 from .automaton import DFA, compile_query
 from .batch import batch_rapq, batch_rspq_bruteforce, snapshot_from_edges, streaming_oracle
-from .carry import carry_reference_state
+from .carry import carry_reference_dist, carry_reference_state
 from .contraction import KNOWN_BACKENDS, KernelBackend, PlainBackend, resolve_backend
 from .engine import BatchedDenseRPQEngine, DenseRPQEngine, RegisteredQuery
 from .executor import Executor, LocalExecutor, QueryTables
@@ -35,6 +36,7 @@ __all__ = [
     "QueryTables",
     "batch_rapq",
     "batch_rspq_bruteforce",
+    "carry_reference_dist",
     "carry_reference_state",
     "snapshot_from_edges",
     "streaming_oracle",

@@ -1,7 +1,8 @@
 """Contraction backends: the closure round's contraction as an object.
 
 The counterpart of ``repro.core.backend`` (its ``ContractionBackend``
-hooks, lines 76-262), trimmed to what the dense and ELL rounds need:
+hooks, lines 76-262), trimmed to what the dense, ELL and row-sparse
+rounds need:
 
   * :meth:`Backend.contract_rows` — batched max-min over gathered
     transition rows, ``d_s (J, M, N)[x, u] x a_l (J, N, N)[u, v]``;
@@ -11,6 +12,9 @@ hooks, lines 76-262), trimmed to what the dense and ELL rounds need:
     — the same against padded-ELL adjacency rows (kernel B5 on the card),
     with the spill ring folded in plain PyTorch (:meth:`Backend._fold_spill`,
     which the reference also keeps outside its kernel);
+  * :meth:`Backend.gather_dist_rows` — the row-sparse dist's densify of
+    the gathered frontier rows (kernel B6 on the card), on raw float32
+    timestamps with a -inf zero;
   * :meth:`Backend.prepare_state` / :meth:`Backend.decode_state` — the
     operand representation at the dispatch boundary (identity here: both
     backends work on float32 timestamps);
@@ -21,8 +25,9 @@ Two backends, both bit-identical (max and min never reassociate):
 ``"plain"`` (:class:`PlainBackend`)
     The chunked plain PyTorch product — the counterpart of ``JnpBackend``.
 ``"cuda"`` (:class:`KernelBackend`, the default)
-    Kernels B1 (dense adjacency) and B5 (ELL adjacency), written by hand
-    for Hopper — the counterpart of ``PallasBackend``. One launch per
+    Kernels B1 (dense adjacency), B5 (ELL adjacency) and B6 (row-sparse
+    dist gather), written by hand for Hopper — the counterpart of
+    ``PallasBackend``. One launch per
     round covers every transition row. On CPU tensors the kernels'
     wrappers take their plain versions.
 
@@ -38,6 +43,8 @@ from ..kernels.ell.ell import ell_gather_contract
 from ..kernels.ell.ref import ell_gather_contract_ref
 from ..kernels.maxmin.maxmin import maxmin_matmul_fused
 from ..kernels.maxmin.ref import maxmin_matmul_fused_ref
+from ..kernels.rowsparse.ref import rowsparse_gather_ref
+from ..kernels.rowsparse.rowsparse import rowsparse_gather
 from .sparse_adj import EllAdjacency
 
 NEG_INF = float("-inf")
@@ -143,6 +150,16 @@ class Backend:
         del d_s
         return contrib.masked_fill_(~mask[:, None, None], self.zero)
 
+    # -- row-sparse dist gather ----------------------------------------------
+
+    def gather_dist_rows(self, idx, ts, e: int) -> torch.Tensor:
+        """Densify gathered row-sparse dist slot rows: idx (M, C) int32 /
+        ts (M, C) f32 -> the (M, E) f32 slab a frontier round relaxes. Raw
+        float32 timestamps with a -inf zero whatever :attr:`zero` is: the
+        caller encodes the slab at the backend boundary, as the reference
+        does."""
+        raise NotImplementedError
+
 
 class PlainBackend(Backend):
     """Chunked plain PyTorch (max, min) contraction — the oracle."""
@@ -155,11 +172,16 @@ class PlainBackend(Backend):
     def _gather_contract(self, d, idx, ts):
         return ell_gather_contract_ref(d, idx, ts)
 
+    def gather_dist_rows(self, idx, ts, e):
+        return rowsparse_gather_ref(idx, ts, e)
+
 
 class KernelBackend(Backend):
     """Kernels B1 (``repro_torch/csrc/maxmin.cu``) and B5
     (``repro_torch/csrc/ell.cu``): one launch per round for all J
-    transition rows; bit-identical to :class:`PlainBackend`."""
+    transition rows; and B6 (``repro_torch/csrc/rowsparse.cu``): one launch
+    per row-sparse frontier dispatch for all gathered rows. Bit-identical
+    to :class:`PlainBackend`."""
 
     name = "cuda"
 
@@ -168,6 +190,9 @@ class KernelBackend(Backend):
 
     def _gather_contract(self, d, idx, ts):
         return ell_gather_contract(d, idx, ts)
+
+    def gather_dist_rows(self, idx, ts, e):
+        return rowsparse_gather(idx, ts, e)
 
 
 BackendLike = Union[None, str, Backend]

@@ -1,6 +1,7 @@
 """Dense streaming RPQ engine, multi-query batched — the counterpart of
-``repro.core.engine`` for the dense dist layout, with the dense or the
-padded-ELL adjacency and the frontier-restricted ingest and deletion.
+``repro.core.engine`` for the local executor: the dense or the padded-ELL
+adjacency, the dense or the row-sparse dist, and the frontier-restricted
+ingest and deletion.
 
 Q persistent queries share ONE adjacency over the union label alphabet and
 step as one dispatch per micro-batch; the query set is live (queries
@@ -10,13 +11,15 @@ export — and everything device-facing lives behind the executor
 (:mod:`repro_torch.core.executor`):
 
     stream -> service -> engine -> executor -> semiring rounds -> kernels
-    (B1 over a dense adjacency, B5 over an ELL one)
+    (B1 over a dense adjacency, B5 over an ELL one; B6 gathers the
+    row-sparse dist's frontier rows)
 
 State (torch tensors on the executor's device; capacities grow at
 runtime, append-only):
     adj     (L, N, N)    f32   newest edge timestamp per (label, u, v)
                                (or its padded-ELL form, sparse_adj.py)
     dist    (Q, N, N, K) f32   per-query bottleneck closure D[q, x, v, s]
+                               (or its row-sparse form, sparse_dist.py)
     emitted (Q, N, N)    bool  pairs already reported per query
     now     ()           f32   stream clock (every event advances it)
 
@@ -42,7 +45,7 @@ from .executor import (
     Executor,
     LocalExecutor,
     QueryTables,
-    check_ported,
+    check_options,
 )
 from .semiring import NEG_INF, BatchedTransitionTable
 
@@ -155,9 +158,10 @@ class BatchedDenseRPQEngine:
 
     ``device=None`` runs on the CUDA card (and raises without one);
     ``backend=None`` is the kernel backend (B1 on a dense adjacency, B5 on
-    an ELL one). ``frontier`` ("off" | "on" | "auto") and ``adj_layout``
-    ("dense" | "ell") configure the default executor as in the JAX
-    package; ``dist_layout="row_sparse"`` is not ported yet and raises."""
+    an ELL one, B6 for the row-sparse frontier gather). ``frontier``
+    ("off" | "on" | "auto"), ``adj_layout`` ("dense" | "ell") and
+    ``dist_layout`` ("dense" | "row_sparse", with ``dist_cap``) configure
+    the default executor as in the JAX package."""
 
     def __init__(
         self,
@@ -183,8 +187,8 @@ class BatchedDenseRPQEngine:
         names = [q.name for q in queries]
         if len(set(names)) != len(names):
             raise ValueError(f"duplicate query names: {names}")
-        check_ported(frontier=frontier, adj_layout=adj_layout,
-                     dist_layout=dist_layout)
+        check_options(frontier=frontier, adj_layout=adj_layout,
+                      dist_layout=dist_layout)
         # frontier and layout kwargs configure the default executor only;
         # an explicit executor instance arrives already configured
         self.executor = executor if executor is not None else LocalExecutor(
@@ -825,16 +829,19 @@ class DenseRPQEngine(BatchedDenseRPQEngine):
         """The Q=1 state with the adjacency as the canonical dense slab,
         whatever the layout."""
         b = self.executor.arrays
-        return EngineArrays(self.executor.dense_adj(), b.dist[0],
-                            b.emitted[0], b.now)
+        return EngineArrays(self.executor.dense_adj(),
+                            self.executor.dense_dist()[0], b.emitted[0], b.now)
 
     @arrays.setter
     def arrays(self, a: EngineArrays) -> None:
         adj = a.adj
         if self.executor.adj_layout == "ell":
             adj = self.executor.pack_adj(device_get(torch.as_tensor(adj)))
+        dist = a.dist[None]
+        if self.executor.dist_layout == "row_sparse":
+            dist = self.executor.pack_dist(device_get(torch.as_tensor(dist)))
         self.executor.set_arrays(BatchedEngineArrays(
-            adj, a.dist[None], a.emitted[None], a.now))
+            adj, dist, a.emitted[None], a.now))
 
     @property
     def results(self) -> Set[Pair]:

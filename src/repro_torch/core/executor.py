@@ -1,6 +1,7 @@
 """Executor layer: everything device-facing of the batched dense engine —
-the counterpart of ``repro.core.executor`` for the dense dist layout, with
-the dense or the padded-ELL adjacency and ``frontier`` off, on or auto.
+the counterpart of ``repro.core.executor``'s local executor: the dense or
+the padded-ELL adjacency, the dense or the row-sparse dist, and
+``frontier`` off, on or auto.
 
 The engine (:mod:`repro_torch.core.engine`) is pure orchestration. The
 device state (:class:`BatchedEngineArrays`, torch tensors on one device)
@@ -19,7 +20,10 @@ The step functions (:func:`apply_batch`, :func:`emit_new`, :func:`_ingest`,
 update the dense state tensors in place where the JAX versions donate their
 input (``donate_argnums``): at N=2048 every copy of dist is 0.8 GB. The
 ELL adjacency (:mod:`repro_torch.core.sparse_adj`) is small and its
-mutations return a new state.
+mutations return a new state; the row-sparse dist
+(:mod:`repro_torch.core.sparse_dist`) is updated in place by the
+frontier dispatch's scatter and by the clears, and re-packed into new
+tensors by the dense round trip and by drains.
 
 Round accounting lives here too: ``rounds_total``, ``query_rounds_total``
 and ``unmasked_query_rounds_total`` as in the JAX executor, and the
@@ -29,8 +33,10 @@ executor's cadence — every 64 pending dispatches under ``"auto"``, every
 256 otherwise, and whenever a counter is read — so capacity growth lands
 on the same dispatch as in the reference. ``host_syncs`` counts the
 blocking reads the JAX version does not need because its loops and its
-fallback choice run on the device: one per closure round, plus one per
-frontier dispatch for the fallback decision.
+fallback choice run on the device: one per closure round, one per
+frontier dispatch for the fallback decision, and the reads of the
+row-sparse re-pack after a dense round trip. Drains, re-packs and growth
+read the device as the JAX executor's do and are not counted.
 """
 from __future__ import annotations
 
@@ -47,6 +53,19 @@ from .semiring import (
     _closure,
     _frontier,
     batched_valid_pairs,
+)
+from .sparse_dist import (
+    RowSparseDist,
+    from_numpy as rsd_from_numpy,
+    rsd_clear_lane,
+    rsd_clear_slots,
+    rsd_empty_like,
+    rsd_empty_np,
+    rsd_from_dense,
+    rsd_grow_repack,
+    rsd_live_entries,
+    rsd_row_counts,
+    rsd_to_dense,
 )
 from .sparse_adj import (
     EllAdjacency,
@@ -66,29 +85,16 @@ FRONTIER_MODES = ("off", "on", "auto")
 ADJ_LAYOUTS = ("dense", "ell")
 DIST_LAYOUTS = ("dense", "row_sparse")
 
-#: options of the JAX executor the port does not run yet, with the
-#: ROADMAP item that brings each
-_NOT_PORTED = {
-    "dist_layout": ("dense", "ROADMAP A9 (row-sparse dist)"),
-}
 
-
-def check_ported(**options) -> None:
+def check_options(**options) -> None:
     """Raise ``ValueError`` for an executor option value the JAX package
-    does not know, and ``NotImplementedError`` for a known one the port
-    does not run yet."""
+    does not know."""
     known = {"frontier": FRONTIER_MODES, "adj_layout": ADJ_LAYOUTS,
              "dist_layout": DIST_LAYOUTS}
     for key, value in options.items():
         if value not in known[key]:
             raise ValueError(f"unknown {key} {value!r}; known: "
                              f"{', '.join(known[key])}")
-        if key in _NOT_PORTED:
-            default, item = _NOT_PORTED[key]
-            if value != default:
-                raise NotImplementedError(
-                    f"{key}={value!r} is not yet ported ({item}); the port "
-                    f"runs {key}={default!r}")
 
 
 def _next_pow2(n: int) -> int:
@@ -97,19 +103,24 @@ def _next_pow2(n: int) -> int:
 
 class BatchedEngineArrays(NamedTuple):
     adj: object            # (L, N, N) f32 shared, or an EllAdjacency
-    dist: torch.Tensor     # (Q, N, N, K) f32
+    dist: object           # (Q, N, N, K) f32, or a RowSparseDist
     emitted: torch.Tensor  # (Q, N, N) bool
     now: torch.Tensor      # () f32
 
 
 def init_batched_arrays(n_slots: int, n_labels: int, n_queries: int, k: int,
-                        device: DeviceLike = None) -> BatchedEngineArrays:
+                        device: DeviceLike = None,
+                        dist=None) -> BatchedEngineArrays:
+    """Empty dense state; ``dist`` replaces the empty dense dist (the
+    row-sparse layout passes its own, so no dense slab is made)."""
     dev = resolve_device(device)
+    if dist is None:
+        dist = torch.full((n_queries, n_slots, n_slots, k), NEG_INF,
+                          dtype=torch.float32, device=dev)
     return BatchedEngineArrays(
         adj=torch.full((n_labels, n_slots, n_slots), NEG_INF,
                        dtype=torch.float32, device=dev),
-        dist=torch.full((n_queries, n_slots, n_slots, k), NEG_INF,
-                        dtype=torch.float32, device=dev),
+        dist=dist,
         emitted=torch.zeros((n_queries, n_slots, n_slots), dtype=torch.bool,
                             device=dev),
         now=torch.tensor(NEG_INF, dtype=torch.float32, device=dev),
@@ -243,7 +254,10 @@ def _delete(arrays: BatchedEngineArrays, src, dst, lab, mask, ts_now,
     low = now - windows
     valid_before = batched_valid_pairs(arrays.dist, finals_mask, low)
     adj = drop_batch(arrays, src, dst, lab, mask, host)
-    dist0 = arrays.dist.fill_(NEG_INF)      # from scratch, in place
+    if isinstance(arrays.dist, RowSparseDist):
+        dist0 = rsd_empty_like(arrays.dist)
+    else:
+        dist0 = arrays.dist.fill_(NEG_INF)  # from scratch, in place
     dist, rounds, qrounds, syncs = _closure(
         dist0, adj, btt, backend, 0, live_mask, now, w_max)
     valid_after = batched_valid_pairs(dist, finals_mask, low)
@@ -292,15 +306,20 @@ def _expire(arrays: BatchedEngineArrays, tau, max_window):
 
 def _clear_slots(arrays: BatchedEngineArrays, slots: torch.Tensor):
     """Reset rows/cols of recycled slots (-inf / False) for all queries,
-    in place on the dense tensors."""
+    in place on the dense tensors and the row-sparse leaves."""
+    n = arrays.emitted.shape[1]
+    dead = torch.zeros((n,), dtype=torch.bool, device=slots.device)
+    dead.index_fill_(0, slots, True)
     if isinstance(arrays.adj, EllAdjacency):
-        n = arrays.emitted.shape[1]
-        dead = torch.zeros((n,), dtype=torch.bool, device=slots.device)
-        adj = ell_clear_slots(arrays.adj, dead.index_fill_(0, slots, True))
+        adj = ell_clear_slots(arrays.adj, dead)
     else:
         adj = arrays.adj.index_fill_(1, slots, NEG_INF).index_fill_(2, slots,
                                                                    NEG_INF)
-    dist = arrays.dist.index_fill_(1, slots, NEG_INF).index_fill_(2, slots, NEG_INF)
+    if isinstance(arrays.dist, RowSparseDist):
+        dist = rsd_clear_slots(arrays.dist, dead)
+    else:
+        dist = arrays.dist.index_fill_(1, slots, NEG_INF).index_fill_(
+            2, slots, NEG_INF)
     emitted = arrays.emitted.index_fill_(1, slots, False).index_fill_(2, slots, False)
     return BatchedEngineArrays(adj, dist, emitted, arrays.now)
 
@@ -314,9 +333,10 @@ class Executor:
     """Device-facing half of :class:`~repro_torch.core.engine.BatchedDenseRPQEngine`:
     owns the :class:`BatchedEngineArrays`, every dispatch over them and
     the round and frontier accounting. ``device=None`` means the CUDA card
-    and raises without one. ``dist_layout="row_sparse"`` is not ported yet
-    and raises (ROADMAP A9); ``dist_cap``/``dist_ovf_cap`` are accepted for
-    the JAX signature and unused."""
+    and raises without one. ``dist_layout="row_sparse"`` keeps per-row
+    slot sets of ``dist_cap`` entries and an overflow table of
+    ``dist_ovf_cap`` rows (None: sized at first placement), with the
+    reference's host budget, drains and re-packs."""
 
     q_multiple: int = 1
     n_multiple: int = 1
@@ -328,10 +348,13 @@ class Executor:
                  dist_layout: str = "dense", dist_cap: int = 16,
                  dist_ovf_cap: Optional[int] = None,
                  device: DeviceLike = None):
-        check_ported(frontier=frontier, adj_layout=adj_layout,
-                     dist_layout=dist_layout)
+        check_options(frontier=frontier, adj_layout=adj_layout,
+                      dist_layout=dist_layout)
         for name, value in (("frontier_cap", frontier_cap),
-                            ("ell_cap", ell_cap), ("spill_cap", spill_cap)):
+                            ("ell_cap", ell_cap), ("spill_cap", spill_cap),
+                            ("dist_cap", dist_cap),
+                            ("dist_ovf_cap",
+                             1 if dist_ovf_cap is None else dist_ovf_cap)):
             if value < 1:
                 raise ValueError(f"{name} must be >= 1, got {value}")
         self.device = resolve_device(device)
@@ -339,7 +362,20 @@ class Executor:
         #: adjacency representation ("dense" | "ell"); results are layout-
         #: independent, memory and the seed term are not
         self.adj_layout = adj_layout
+        #: dist representation ("dense" | "row_sparse"); results are
+        #: layout-independent, memory and the emit scan are not
         self.dist_layout = dist_layout
+        #: per-(q, x) slot capacity, pow2; grows x2 at overflow drains and
+        #: whenever a pack finds a fuller row
+        self.dist_cap = _next_pow2(dist_cap) if dist_cap > 1 else 1
+        #: overflow-table rows; None = sized at first placement
+        self.dist_ovf_cap = (_next_pow2(dist_ovf_cap)
+                             if dist_ovf_cap is not None else None)
+        self._dist_budget = 0     # claim bound since the last drain
+        self._dist_repacks = 0
+        self._dist_drains = 0
+        self._dist_lost = 0       # host view, refreshed at drains
+        self._dist_live_entries: Optional[int] = None
         #: per-(label, u) degree capacity, pow2; grows x2 at spill drains
         self.ell_cap = _next_pow2(ell_cap) if ell_cap > 1 else 1
         #: spill-ring capacity; the budget drains before it can fill
@@ -378,8 +414,17 @@ class Executor:
     # -- state ---------------------------------------------------------------
 
     def init_state(self, n_slots: int, n_label_slots: int, q_cap: int, k: int) -> None:
+        """Empty state. The row-sparse dist is made empty directly: the
+        leaves and capacities the reference's pack of an all -inf slab
+        gives, without the (Q, N, N, K) slab."""
+        dist = None
+        if self.dist_layout == "row_sparse":
+            self._size_ovf_table(q_cap, n_slots)
+            self._dist_budget = 0
+            dist = rsd_from_numpy(rsd_empty_np(q_cap, n_slots, k, self.dist_cap,
+                                               self.dist_ovf_cap), self.device)
         arrays = init_batched_arrays(n_slots, n_label_slots, q_cap, k,
-                                     self.device)
+                                     self.device, dist)
         if self.adj_layout == "ell":
             arrays = arrays._replace(adj=self._pack_device(arrays.adj))
         self.set_arrays(arrays)
@@ -393,15 +438,16 @@ class Executor:
 
     def place(self, state: Dict[str, object]) -> None:
         """(Re)place host arrays (numpy) as this executor's device state —
-        the counterpart of the JAX executor's ``place``. ``adj`` is the
-        canonical dense slab; an ELL executor packs it (growing ``ell_cap``
-        x2 until the live max degree fits)."""
+        the counterpart of the JAX executor's ``place``. ``adj`` and
+        ``dist`` are the canonical dense slabs; an ELL executor packs the
+        adjacency (growing ``ell_cap`` x2 until the live max degree fits), a
+        row-sparse one the dist (growing ``dist_cap`` likewise)."""
         def put(x, dtype):
             return torch.tensor(np.asarray(x), dtype=dtype, device=self.device)
 
         self.set_arrays(BatchedEngineArrays(
             self.pack_adj(state["adj"]),
-            put(state["dist"], torch.float32),
+            self.pack_dist(state["dist"]),
             put(state["emitted"], torch.bool),
             put(np.float32(state["now"]), torch.float32).reshape(()),
         ))
@@ -421,6 +467,42 @@ class Executor:
                               self.device)
         return torch.tensor(adj_np, dtype=torch.float32, device=self.device)
 
+    def _size_ovf_table(self, q: int, n: int) -> None:
+        """The reference's one-time table sizing: room for every row at
+        small scale, clamped at 4096 rows (the table's dense rows are
+        N*K wide)."""
+        if self.dist_ovf_cap is None:
+            self.dist_ovf_cap = _next_pow2(min(max(q * n, 64), 4096))
+
+    def pack_dist(self, dist):
+        """Host dense ``(Q, N, N, K)`` slab -> device dist in this
+        executor's layout (see :meth:`_pack_dist_device`)."""
+        dense = torch.tensor(np.asarray(dist, np.float32), device=self.device)
+        if self.dist_layout == "row_sparse":
+            return self._pack_dist_device(dense)
+        return dense
+
+    def _pack_dist_device(self, dense: torch.Tensor) -> RowSparseDist:
+        """Row-sparse pack of a dense slab on the device, after growing
+        ``dist_cap`` x2 until the fullest row fits its slots (one host
+        read), so a pack never routes a row to the overflow table: the
+        leaves of the reference's host ``pack_rows``."""
+        q, n = dense.shape[0], dense.shape[1]
+        need = (int(device_get((dense > NEG_INF).reshape(q, n, -1).sum(-1)
+                               .max())) if dense.numel() else 0)
+        while self.dist_cap < need:
+            self.dist_cap *= 2
+        self._size_ovf_table(q, n)
+        self._dist_budget = 0
+        return rsd_from_dense(dense, self.dist_cap, self.dist_ovf_cap)
+
+    def load_dist(self, sd: RowSparseDist, budget: int = 0) -> None:
+        """Take ``sd`` as the dist, with its slot and table capacities and
+        ``budget`` table claims made since the last drain."""
+        self.dist_cap, self.dist_ovf_cap = sd.dist_cap, sd.ovf_cap
+        self._dist_budget = int(budget)
+        self._arrays = self._arrays._replace(dist=sd)
+
     def _pack_device(self, dense: torch.Tensor) -> EllAdjacency:
         """:meth:`pack_adj` for a dense slab already on the device (growth
         and re-packs keep the state on the card)."""
@@ -439,7 +521,12 @@ class Executor:
         return a
 
     def dense_dist(self) -> torch.Tensor:
-        return self._arrays.dist
+        """The dist in canonical dense ``(Q, N, N, K)`` form regardless of
+        layout (a row-sparse dist is densified: maintenance paths only)."""
+        d = self._arrays.dist
+        if isinstance(d, RowSparseDist):
+            return rsd_to_dense(d)
+        return d
 
     @property
     def adj_shape(self) -> Tuple[int, int, int]:
@@ -451,18 +538,23 @@ class Executor:
 
     @property
     def dist_shape(self) -> Tuple[int, int, int, int]:
-        return tuple(self._arrays.dist.shape)
+        """Logical dense ``(Q, N, N, K)`` dist shape regardless of layout."""
+        d = self._arrays.dist
+        if isinstance(d, RowSparseDist):
+            return (d.n_lanes, d.n_slots, d.n_slots, d.k)
+        return tuple(d.shape)
 
     def grow(self, *, n_slots: Optional[int] = None, q_cap: Optional[int] = None,
              k: Optional[int] = None, n_label_slots: Optional[int] = None) -> None:
         """Grow device state (append-only padding: -inf / False); existing
         lanes, labels, slots and states keep their indices. Never shrinks.
-        Grows on the device; an ELL adjacency re-packs at the new shape, as
-        the reference's growth through the dense slab does (the ring
-        drains as a side effect)."""
+        Grows on the device through the canonical dense slabs, as the
+        reference does: an ELL adjacency re-packs at the new shape (the
+        ring drains as a side effect), a row-sparse dist re-packs with the
+        table empty."""
         a = self._arrays
         l_old, n_old, _ = self.adj_shape
-        q_old, _, _, k_old = a.dist.shape
+        q_old, _, _, k_old = self.dist_shape
         n_new = max(n_slots or 0, n_old)
         l_new = max(n_label_slots or 0, l_old)
         q_new = max(q_cap or 0, q_old)
@@ -471,11 +563,13 @@ class Executor:
             return
         grown = init_batched_arrays(n_new, l_new, q_new, k_new, self.device)
         grown.adj[:l_old, :n_old, :n_old] = self.dense_adj()
-        grown.dist[:q_old, :n_old, :n_old, :k_old] = a.dist
+        grown.dist[:q_old, :n_old, :n_old, :k_old] = self.dense_dist()
         grown.emitted[:q_old, :n_old, :n_old] = a.emitted
         grown = grown._replace(now=a.now)
         if self.adj_layout == "ell":
             grown = grown._replace(adj=self._pack_device(grown.adj))
+        if self.dist_layout == "row_sparse":
+            grown = grown._replace(dist=self._pack_dist_device(grown.dist))
         self.set_arrays(grown)
 
     # -- dispatches ----------------------------------------------------------
@@ -492,6 +586,8 @@ class Executor:
         fallback on overflow; results are bit-identical either way)."""
         if self.adj_layout == "ell":
             self._reserve_spill(len(src))
+        if self.dist_layout == "row_sparse":
+            self._reserve_dist(self.frontier != "off")
         host = HostBatch(np.asarray(src, np.int64), np.asarray(dst, np.int64),
                          np.asarray(lab, np.int64), np.asarray(mask, bool))
         src_t, dst_t, lab_t, ts_t, mask_t = self._batch(
@@ -516,6 +612,8 @@ class Executor:
         """Explicit deletion dispatch; returns the invalidated pairs
         (Q, N, N) as a device tensor. With ``frontier != "off"`` only the
         deleted edges' cone is cleared and re-derived."""
+        if self.dist_layout == "row_sparse":
+            self._reserve_dist(self.frontier != "off")
         host = HostBatch(np.asarray(src, np.int64), np.asarray(dst, np.int64),
                          np.asarray(lab, np.int64), np.asarray(mask, bool))
         src_t, dst_t, lab_t, mask_t = self._batch(host.src, host.dst,
@@ -540,7 +638,10 @@ class Executor:
     def relax(self, tables: QueryTables,
               query_mask: Optional[np.ndarray] = None) -> None:
         """Run the batched closure to fixpoint in place (lane seeding at
-        registration, or any re-derivation); always the dense loop."""
+        registration, or any re-derivation); always the dense loop (a
+        row-sparse dist takes the densify round trip)."""
+        if self.dist_layout == "row_sparse":
+            self._reserve_dist(False)
         a = self._arrays
         mask = tables.live_mask if query_mask is None else torch.as_tensor(
             np.asarray(query_mask, bool)).to(self.device)
@@ -568,7 +669,10 @@ class Executor:
 
     def clear_lane(self, lane: int) -> None:
         a = self._arrays
-        a.dist[lane] = NEG_INF
+        if isinstance(a.dist, RowSparseDist):
+            rsd_clear_lane(a.dist, lane)
+        else:
+            a.dist[lane] = NEG_INF
         a.emitted[lane] = False
 
     def set_lane_emitted(self, lane: int, valid_lane: torch.Tensor) -> None:
@@ -644,6 +748,78 @@ class Executor:
             "adj_bytes": adj_bytes,
             "occupancy": (self._ell_live_edges / slot_cells
                           if self._ell_live_edges is not None and slot_cells
+                          else None),
+        }
+
+    # -- row-sparse dist overflow budget -------------------------------------
+    #
+    # The ELL spill budget at row granularity: a frontier dispatch can claim
+    # at most its frontier rows, a dense round trip up to every row, so the
+    # host tracks a bound on table claims since the last drain and reads the
+    # claim cursor BEFORE the bound crosses the table's capacity. A drain
+    # that finds claims grows ``dist_cap`` x2 toward the fullest row and
+    # re-packs (rsd_grow_repack: no densify), which empties the table; one
+    # that finds it empty resets the budget. Rows lost with the table full
+    # are counted (``dist_stats["lost"]``), never silent.
+
+    def _reserve_dist(self, frontier: bool) -> None:
+        q, n = self.dist_shape[0], self.dist_shape[1]
+        w = q * min(self.frontier_cap, n) if frontier else q * n
+        w = min(w, self.dist_ovf_cap)
+        if self._dist_budget + w > self.dist_ovf_cap:
+            self._drain_dist()
+        self._dist_budget += w
+
+    def _drain_dist(self) -> None:
+        self._dist_drains += 1
+        d = self._arrays.dist
+        ptr, lost = (int(x) for x in device_get(torch.stack([d.ovf_ptr,
+                                                             d.lost])))
+        self._dist_lost = lost
+        if ptr > 0:
+            need = int(device_get(rsd_row_counts(d).max()))
+            while self.dist_cap < need:
+                self.dist_cap *= 2
+            self._repack_dist()
+        else:
+            self._dist_budget = 0
+
+    def _repack_dist(self) -> None:
+        """Re-pack at the current capacities without densifying: table
+        rows that now fit move into their slots, the table empties; adj
+        and emitted stay resident."""
+        sd = rsd_grow_repack(self._arrays.dist, self.dist_cap, self.dist_ovf_cap)
+        self._arrays = self._arrays._replace(dist=sd)
+        self._dist_repacks += 1
+        self._dist_live_entries = int(device_get(rsd_live_entries(sd)))
+        self._dist_budget = 0
+
+    @property
+    def dist_stats(self) -> Dict[str, object]:
+        """Dist-representation telemetry (host-known values only).
+        ``live_entries`` and ``occupancy`` are snapshots from the last
+        re-pack (None before one); ``lost`` is the host's view from the
+        last drain; ``dist_bytes`` is the device footprint of the current
+        representation."""
+        d = self._arrays.dist if self._arrays is not None else None
+        if isinstance(d, RowSparseDist):
+            slot_cells = d.n_lanes * d.n_slots * d.dist_cap
+            dist_bytes = sum(x.numel() * x.element_size() for x in d)
+        else:
+            slot_cells = d.numel() if d is not None else 0
+            dist_bytes = slot_cells * 4
+        return {
+            "layout": self.dist_layout,
+            "dist_cap": self.dist_cap,
+            "ovf_cap": self.dist_ovf_cap,
+            "repacks": self._dist_repacks,
+            "drains": self._dist_drains,
+            "lost": self._dist_lost,
+            "live_entries": self._dist_live_entries,
+            "slot_cells": slot_cells,
+            "dist_bytes": dist_bytes,
+            "occupancy": (self._dist_live_entries / slot_cells
+                          if self._dist_live_entries is not None and slot_cells
                           else None),
         }
 

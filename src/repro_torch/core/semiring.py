@@ -1,7 +1,8 @@
 """(max, min) bottleneck-semiring relaxation over the product graph, for a
-batch of queries — the dense-dist layout of ``repro.core.semiring``
-(lines 184-825): the batched round and closure over a dense or an ELL
-adjacency, and the frontier-restricted closure and deletion.
+batch of queries — ``repro.core.semiring`` lines 184-1012: the batched
+round and closure over a dense or an ELL adjacency, the
+frontier-restricted closure and deletion, and both over the row-sparse
+dist (:mod:`repro_torch.core.sparse_dist`).
 
 ``dist[q, x, v, s]`` is the best (max over paths) bottleneck (min over
 edges) timestamp of any path x -> v whose label drives query q's DFA from
@@ -33,6 +34,16 @@ import torch
 from ..device import DeviceLike, device_get, resolve_device
 from .contraction import Backend, BackendLike, resolve_backend
 from .sparse_adj import EllAdjacency, ell_rows_dense
+from .sparse_dist import (
+    RowSparseDist,
+    _from_dense,
+    _source_mask,
+    rsd_gather_rows,
+    rsd_scatter_rows,
+    rsd_seed_gathered,
+    rsd_to_dense,
+    rsd_valid_pairs,
+)
 
 NEG_INF = float("-inf")
 
@@ -258,7 +269,15 @@ def batched_closure(
 
 
 def _closure(dist, adj, btt, backend, max_rounds, query_mask, now, w_max):
-    """:func:`batched_closure` plus the host-sync count."""
+    """:func:`batched_closure` plus the host-sync count. A
+    :class:`RowSparseDist` takes the reference's dense round trip:
+    densify, the same dense loop, re-pack (its reads count as syncs)."""
+    if isinstance(dist, RowSparseDist):
+        dense, rounds, qrounds, syncs = _closure(
+            rsd_to_dense(dist), adj, btt, backend, max_rounds, query_mask,
+            now, w_max)
+        out, reads = _from_dense(dense, dist.dist_cap, dist.ovf_cap, dist.lost)
+        return out, rounds, qrounds, syncs + reads
     backend = resolve_backend(backend)
     q, n, _, k = dist.shape
     bound = max_rounds if max_rounds > 0 else n * k + 1
@@ -274,7 +293,11 @@ def batched_valid_pairs(
     dist: torch.Tensor, finals: torch.Tensor, low: torch.Tensor
 ) -> torch.Tensor:
     """(Q, N, N) bool validity per query: ``finals`` is (Q, K), ``low``
-    is (Q,) (per-query window thresholds applied at read time; strict >)."""
+    is (Q,) (per-query window thresholds applied at read time; strict >).
+    A :class:`RowSparseDist` takes the sparse emit (:func:`rsd_valid_pairs`),
+    which reduces only the stored entries."""
+    if isinstance(dist, RowSparseDist):
+        return rsd_valid_pairs(dist, finals, low)
     best = dist.masked_fill(~finals[:, None, None, :], NEG_INF).amax(dim=3)
     return best > low[:, None, None]
 
@@ -310,14 +333,6 @@ class FrontierStats(NamedTuple):
     max_lane_rows: int    # largest single-lane frontier
     rows_relaxed: int     # sum over rounds of rows relaxed
     fell_back: bool       # dense fallback taken (overflow)
-
-
-def _source_mask(src: torch.Tensor, smask: torch.Tensor, n: int) -> torch.Tensor:
-    """(N,) bool: the batch's unmasked source slots (masked slots index
-    one past the end and are cut off, as JAX's ``mode="drop"``)."""
-    idx = torch.where(smask, src, n)
-    out = torch.zeros((n + 1,), dtype=torch.bool, device=src.device)
-    return out.index_fill_(0, idx, True)[:n]
 
 
 def frontier_seed(
@@ -452,32 +467,36 @@ def frontier_relax_round(
     return dist, changed
 
 
-def _frontier_loop(dist, adj, btt, backend, rows, rowmask0, n_active: int,
-                   bound: int):
-    """The frontier rounds of one dispatch, in place on ``dist``: round 1
-    relaxes ``rowmask0`` (``n_active`` rows, known on the host), each later
-    round the rows the previous one changed, until none changed or
-    ``bound`` rounds ran. One host read per round (the changed-row count).
-    Returns ``(dist, rounds, query_rounds, rows_relaxed, host_syncs)``."""
-    q = dist.shape[0]
-    qrounds = torch.zeros((q,), dtype=torch.int32, device=dist.device)
+def _frontier_loop(state, step, rowmask0, n_active: int, bound: int):
+    """The frontier rounds of one dispatch: round 1 relaxes ``rowmask0``
+    (``n_active`` rows, known on the host), each later round the rows the
+    previous one changed, until none changed or ``bound`` rounds ran.
+    ``step(state, rowmask) -> (state, changed)`` is one round (on the
+    dense dist, or on the row-sparse path's gathered slab). One host read
+    per round (the changed-row count). Returns ``(state, rounds,
+    query_rounds, rows_relaxed, host_syncs)``."""
+    q = rowmask0.shape[0]
+    qrounds = torch.zeros((q,), dtype=torch.int32, device=rowmask0.device)
     rm = rowmask0
     rounds = rows_relaxed = syncs = 0
     while n_active > 0 and rounds < bound:
         qrounds += rm.any(dim=1).to(torch.int32)
-        dist, rm = frontier_relax_round(dist, adj, btt, backend, rows, rm)
+        state, rm = step(state, rm)
         rows_relaxed += n_active
         rounds += 1
         if rounds < bound:
             n_active = int(device_get(rm.sum()))
             syncs += 1
-    return dist, rounds, qrounds, rows_relaxed, syncs
+    return state, rounds, qrounds, rows_relaxed, syncs
 
 
 def _frontier(dist, adj, btt, backend, src, smask, f_cap, query_mask,
               max_rounds, now, w_max, delete: bool):
     """:func:`frontier_closure` (``delete=False``) and
     :func:`frontier_delete` (``delete=True``) plus the host-sync count."""
+    if isinstance(dist, RowSparseDist):
+        return _rowsparse_frontier(dist, adj, btt, backend, src, smask, f_cap,
+                                   query_mask, max_rounds, now, w_max, delete)
     backend = resolve_backend(backend)
     q, n, _, k = dist.shape
     bound = max_rounds if max_rounds > 0 else n * k + 1
@@ -488,12 +507,7 @@ def _frontier(dist, adj, btt, backend, src, smask, f_cap, query_mask,
     seed_fn = (frontier_seed_gathered if isinstance(adj, EllAdjacency)
                else frontier_seed)
     dirty = seed_fn(dist, src, smask, mask0)
-    rows, rowmask0, cnt = pack_frontier(dirty, f_cap)
-    # the one read that replaces lax.cond: counts per lane and live lanes
-    host = device_get(torch.cat([cnt.to(torch.int64),
-                                 mask0.sum().reshape(1)]))
-    cnt_h, live_lanes = host[:q], int(host[q])
-    overflow = bool((cnt_h > f_cap).any())
+    rows, rowmask0, cnt_h, live_lanes, overflow = _plan(dirty, f_cap, mask0)
     syncs = 1
     if delete:
         # the cone's rows, or every row on the fallback, re-derive from -inf
@@ -508,12 +522,93 @@ def _frontier(dist, adj, btt, backend, src, smask, f_cap, query_mask,
         rows_relaxed = rounds * live_lanes * n
     else:
         n_active = int(np.minimum(cnt_h, f_cap).sum())
+
+        def step(d, rm):
+            return frontier_relax_round(d, adj_op, btt, backend, rows, rm)
+
         dist_f, rounds, qrounds, rows_relaxed, loop_syncs = _frontier_loop(
-            dist_op, adj_op, btt, backend, rows, rowmask0, n_active, bound)
+            dist_op, step, rowmask0, n_active, bound)
     stats = FrontierStats(int(cnt_h.sum()), int(cnt_h.max()), rows_relaxed,
                           overflow)
     return (backend.decode_state(dist_f, now, w_max), rounds, qrounds, stats,
             syncs + loop_syncs)
+
+
+def _plan(dirty: torch.Tensor, f_cap: int, mask0: torch.Tensor):
+    """Pack the dirty mask and take the one host read that replaces the
+    reference's ``lax.cond``: the per-lane counts and the live lanes.
+    Returns ``(rows, rowmask0, counts (host), live_lanes, overflow)``."""
+    q = dirty.shape[0]
+    rows, rowmask0, cnt = pack_frontier(dirty, f_cap)
+    host = device_get(torch.cat([cnt.to(torch.int64), mask0.sum().reshape(1)]))
+    cnt_h = host[:q]
+    return rows, rowmask0, cnt_h, int(host[q]), bool((cnt_h > f_cap).any())
+
+
+# ---------------------------------------------------------------------------
+# The frontier paths over the row-sparse dist (reference: semiring.py:826-1012)
+#
+# The same contracts as the dense-dist functions above. A dispatch reads
+# and writes only the frontier rows, so the row-sparse path densifies them
+# once (the backend's gather_dist_rows: kernel B6 on the card), runs every
+# round on that slab, and scatters the finished rows back once. A delete
+# starts its cone rows from a -inf slab and gathers nothing. On overflow
+# the dispatch takes the dense round trip: densify, the exact dense loop,
+# re-pack (rows that outgrow dist_cap land in the overflow table, which
+# the executor's budget drains before it fills).
+# ---------------------------------------------------------------------------
+
+
+def _rowsparse_frontier(sd: RowSparseDist, adj, btt, backend, src, smask,
+                        f_cap, query_mask, max_rounds, now, w_max,
+                        delete: bool):
+    """:func:`_frontier` on a :class:`RowSparseDist`: the same return
+    contract, with the re-pack's reads counted among the host syncs. The
+    seed walks the stored entries of the (pre-delete) state; a delete's
+    final scatter overwrites every cone row whole, which is its clear."""
+    backend = resolve_backend(backend)
+    q, n, _c = sd.idx.shape
+    k = sd.k
+    bound = max_rounds if max_rounds > 0 else n * k + 1
+    dev = sd.ts.device
+    mask0 = (torch.ones((q,), dtype=torch.bool, device=dev)
+             if query_mask is None else query_mask.to(torch.bool))
+    dirty = rsd_seed_gathered(sd, src, smask, mask0)
+    rows, rowmask0, cnt_h, live_lanes, overflow = _plan(dirty, f_cap, mask0)
+    syncs = 1
+    _, adj_op = backend.prepare_state(None, adj, now, w_max)
+    if overflow:
+        dense = (torch.full((q, n, n, k), NEG_INF, dtype=torch.float32,
+                            device=dev)
+                 if delete else rsd_to_dense(sd))
+        d_op, _ = backend.prepare_state(dense, None, now, w_max)
+        d_f, rounds, qrounds, loop_syncs = _masked_closure_loop(
+            d_op, adj_op, btt, backend, mask0, bound)
+        out, reads = _from_dense(backend.decode_state(d_f, now, w_max),
+                                 sd.dist_cap, sd.ovf_cap, sd.lost)
+        del d_f, d_op, dense
+        rows_relaxed = rounds * live_lanes * n
+        syncs += reads
+    else:
+        if delete:
+            # cone rows re-derive from scratch: rounds read only slab rows
+            slab0 = torch.full((q, f_cap, n, k), NEG_INF, dtype=torch.float32,
+                               device=dev)
+        else:
+            slab0 = rsd_gather_rows(sd, rows, backend.gather_dist_rows)
+        slab_op, _ = backend.prepare_state(slab0, None, now, w_max)
+
+        def step(s, rm):
+            return _frontier_slab_round(s, adj_op, btt, backend, rows, rm)
+
+        n_active = int(np.minimum(cnt_h, f_cap).sum())
+        s_f, rounds, qrounds, rows_relaxed, loop_syncs = _frontier_loop(
+            slab_op, step, rowmask0, n_active, bound)
+        out = rsd_scatter_rows(sd, rows, rowmask0,
+                               backend.decode_state(s_f, now, w_max))
+    stats = FrontierStats(int(cnt_h.sum()), int(cnt_h.max()), rows_relaxed,
+                          overflow)
+    return out, rounds, qrounds, stats, syncs + loop_syncs
 
 
 def frontier_closure(

@@ -1,6 +1,7 @@
 """Persistent-query service: the end-to-end serving driver — the
-counterpart of ``repro.streaming.service`` for the local executor with the
-dense dist layout, the dense or ELL adjacency and every frontier mode.
+counterpart of ``repro.streaming.service`` for the local executor with
+the dense or ELL adjacency, the dense or row-sparse dist and every
+frontier mode.
 
 Register RPQs (per-query engine choice + path semantics), ingest an
 ordered sgt stream with eager evaluation and lazy expiration (slide
@@ -10,8 +11,10 @@ execution model, §2, §5.1).
 Every query registered with ``engine="dense"`` folds into ONE
 :class:`~repro_torch.core.engine.BatchedDenseRPQEngine` on the CUDA card
 (``device=None``), whose closure rounds run kernel B1 (dense adjacency) or
-kernel B5 (``adj_layout="ell"``); reference engines (the paper-faithful
-pointer oracles) stay on the per-query host path.
+kernel B5 (``adj_layout="ell"``), and whose row-sparse frontier dispatches
+gather their rows with kernel B6 (``dist_layout="row_sparse"``); reference
+engines (the paper-faithful pointer oracles) stay on the per-query host
+path.
 
 Kept from the reference: live register/deregister, :class:`IngestReport`
 (new pairs, deletion invalidations, RSPQ fallbacks, per-call frontier
@@ -21,9 +24,11 @@ bounded async-decode FIFO (``async_decode``/``async_depth``),
 (``frontier``/``frontier_cap``, per-interval deltas in
 :attr:`PersistentQueryService.frontier_log`) and the ELL adjacency
 (``adj_layout``/``ell_cap``, per-interval snapshots in
-:attr:`PersistentQueryService.adjacency_log`). Not yet ported, and raising
-with their ROADMAP item: ``snapshot``/``restore`` (A10),
-``executor="mesh"`` (A11) and ``dist_layout="row_sparse"`` (A9).
+:attr:`PersistentQueryService.adjacency_log`) and the row-sparse dist
+(``dist_layout``/``dist_cap``, per-interval snapshots in
+:attr:`PersistentQueryService.dist_log`). Not yet ported, and raising
+with their ROADMAP item: ``snapshot``/``restore`` (A10) and
+``executor="mesh"`` (A11).
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ from typing import Deque, Dict, List, Optional, Set, Tuple, Union
 from ..core.automaton import compile_query
 from ..core.contraction import resolve_backend
 from ..core.engine import BatchedDenseRPQEngine, PendingResults, RegisteredQuery
-from ..core.executor import Executor, LocalExecutor, check_ported
+from ..core.executor import Executor, LocalExecutor, check_options
 from ..core.reference import RAPQ, RSPQ
 from ..device import DeviceLike, resolve_device
 
@@ -158,15 +163,20 @@ class PersistentQueryService:
         if not isinstance(executor, Executor) and executor != "local":
             raise ValueError(
                 f"unknown executor {executor!r} (local | mesh | instance)")
-        check_ported(frontier=frontier, adj_layout=adj_layout,
-                     dist_layout=dist_layout)
+        check_options(frontier=frontier, adj_layout=adj_layout,
+                      dist_layout=dist_layout)
         self._frontier = frontier
         self._frontier_cap = int(frontier_cap)
         self._adj_layout = adj_layout
         self._ell_cap = int(ell_cap)
+        self._dist_layout = dist_layout
+        self._dist_cap = int(dist_cap)
         #: (tuples_seen_so_far, adjacency_stats snapshot) history, one entry
         #: per slide boundary when the layout is "ell"
         self.adjacency_log: List[Tuple[int, Dict[str, object]]] = []
+        #: (tuples_seen_so_far, dist_stats snapshot) history, one entry per
+        #: slide boundary when the dist layout is "row_sparse"
+        self.dist_log: List[Tuple[int, Dict[str, object]]] = []
         #: (tuples_seen_so_far, per-interval frontier stats delta) history
         self.frontier_log: List[Tuple[int, Dict[str, object]]] = []
         self._frontier_mark: Optional[Dict[str, object]] = None
@@ -199,7 +209,9 @@ class PersistentQueryService:
         return LocalExecutor(backend, frontier=self._frontier,
                              frontier_cap=self._frontier_cap,
                              adj_layout=self._adj_layout,
-                             ell_cap=self._ell_cap, device=self._device)
+                             ell_cap=self._ell_cap,
+                             dist_layout=self._dist_layout,
+                             dist_cap=self._dist_cap, device=self._device)
 
     @staticmethod
     def _stats_delta(cur: Dict[str, object],
@@ -430,8 +442,9 @@ class PersistentQueryService:
         def mark_interval() -> Dict[str, object]:
             """Per-interval telemetry: append the frontier delta since the
             last slide boundary to :attr:`frontier_log` (and the adjacency
-            snapshot to :attr:`adjacency_log` under ELL); the delta steers
-            the batch size below."""
+            snapshot to :attr:`adjacency_log` under ELL, the dist snapshot
+            to :attr:`dist_log` under the row-sparse dist); the delta
+            steers the batch size below."""
             delta = self._frontier_delta()
             seen = max((self.stats[s.name].tuples
                         for _qi, s in self._group.live_items()),
@@ -442,6 +455,9 @@ class PersistentQueryService:
                     and self._group.executor.adj_layout == "ell"):
                 self.adjacency_log.append(
                     (seen, self._group.executor.adjacency_stats))
+            if (self._group is not None
+                    and self._group.executor.dist_layout == "row_sparse"):
+                self.dist_log.append((seen, self._group.executor.dist_stats))
             return delta
 
         def adapt_batch(finterval: Dict[str, object]) -> None:

@@ -174,19 +174,20 @@ def test_single_query_view_and_state_export():
 
 
 def test_unported_options_and_device_default():
-    """The frontier modes and the ELL layout construct (and configure the
-    executor); the row-sparse dist still raises with its ROADMAP item;
-    unknown values raise ValueError."""
+    """The frontier modes, the ELL layout and the row-sparse dist construct
+    (and configure the executor); unknown values raise ValueError."""
     q = [RegisteredQuery("q", compile_query("a*"), 5.0)]
     for kw in ({"frontier": "on"}, {"frontier": "auto"}, {"adj_layout": "ell"},
-               {"frontier": "auto", "adj_layout": "ell"}):
+               {"frontier": "auto", "adj_layout": "ell"},
+               {"dist_layout": "row_sparse", "dist_cap": 4},
+               {"frontier": "auto", "adj_layout": "ell",
+                "dist_layout": "row_sparse"}):
         eng = BatchedDenseRPQEngine(q, device="cpu", **kw)
         for key, value in kw.items():
             assert getattr(eng.executor, key) == value
-    with pytest.raises(NotImplementedError, match="A9"):
-        BatchedDenseRPQEngine(q, device="cpu", dist_layout="row_sparse")
     for kw in ({"frontier": "sideways"}, {"adj_layout": "csr"},
-               {"dist_layout": "sparse"}):
+               {"dist_layout": "sparse"},
+               {"dist_layout": "row_sparse", "dist_cap": 0}):
         with pytest.raises(ValueError):
             BatchedDenseRPQEngine(q, device="cpu", **kw)
     if torch.cuda.is_available():

@@ -1,6 +1,6 @@
-"""Tests that need the CUDA card: kernels B1 and B5 against their plain
+"""Tests that need the CUDA card: kernels B1, B5 and B6 against their plain
 versions on the card, and the port's engine on the card against itself on
-the CPU.
+the CPU (dense and row-sparse dist).
 
 Marked ``gpu``; each skips (from the ``cuda`` fixture, never at import or
 collection) where there is no card. On the card:
@@ -19,6 +19,8 @@ from repro_torch.kernels.ell import ell as b5
 from repro_torch.kernels.ell.ref import ell_gather_contract_ref
 from repro_torch.kernels.maxmin import maxmin as b1
 from repro_torch.kernels.maxmin.ref import maxmin_matmul_fused_ref
+from repro_torch.kernels.rowsparse import rowsparse as b6
+from repro_torch.kernels.rowsparse.ref import rowsparse_gather_ref
 from repro_torch.streaming.generators import so_like, with_deletions
 
 pytestmark = pytest.mark.gpu
@@ -198,3 +200,81 @@ def test_frontier_engine_on_card_equals_engine_on_cpu(cuda, adj_layout):
         assert (b1_runs, b5_runs) == (0, gpu.total_rounds)
     else:
         assert (b1_runs, b5_runs) == (gpu.total_rounds, 0)
+
+
+# (M, C, E): C up to 256, E off the kernel's 2048-column tile
+B6_CASES = [(12, 4, 30), (5, 1, 33), (9, 16, 257), (7, 8, 40), (3, 64, 100),
+            (40, 256, 4097), (17, 128, 2049), (192, 4, 32768)]
+
+
+@pytest.mark.parametrize("M,C,E", B6_CASES)
+def test_b6_kernel_equals_plain_version(cuda, M, C, E):
+    rng = np.random.default_rng(M * 1000 + C + E)
+    idx = rng.integers(0, E, (M, C)).astype(np.int32)
+    idx[:, 1::2] = idx[:, :1]                    # duplicate (stale) keys
+    ts = rng.uniform(0.0, 1000.0, (M, C)).astype(np.float32)
+    ts[rng.random(ts.shape) < 0.25] = -np.inf    # free slots
+    ts[::3] = -np.inf                            # all-free rows
+    idx, ts = torch.from_numpy(idx).to(cuda), torch.from_numpy(ts).to(cuda)
+    before = b6.rowsparse_gather.launches
+    out = b6.rowsparse_gather(idx, ts, E)
+    torch.cuda.synchronize()
+    assert b6.rowsparse_gather.launches == before + 1
+    assert torch.equal(out, rowsparse_gather_ref(idx, ts, E))
+
+
+def test_b6_refuses_bad_operands(cuda):
+    idx = torch.zeros((3, 4), dtype=torch.int32, device=cuda)
+    ts = torch.zeros((3, 4), device=cuda)
+    with pytest.raises(TypeError):
+        b6.rowsparse_gather(idx.long(), ts, 8)
+    with pytest.raises(TypeError):
+        b6.rowsparse_gather(idx, ts.double(), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        b6.rowsparse_gather(idx.t().contiguous().t(), ts.t().contiguous().t(), 8)
+
+
+def test_row_sparse_engine_on_card_equals_engine_on_cpu(cuda):
+    """frontier="auto" from a tiny capacity over the ELL adjacency and the
+    row-sparse dist from dist_cap=2 (table claims, drains, re-packs,
+    fallbacks, cone deletes): per event and in the final leaves the card
+    equals the CPU, and on the card B6 ran once per frontier insert
+    dispatch that did not fall back, B5 once per round and B1 never."""
+    queries = [("q1", "a2q . c2a*", "arbitrary"),
+               ("q2", "(a2q | c2a | c2q)+", "arbitrary")]
+
+    def engine(device):
+        return BatchedDenseRPQEngine(
+            [RegisteredQuery(n, compile_query(e), 20.0, s) for n, e, s in queries],
+            n_slots=16, batch_size=1, frontier="auto", frontier_cap=2,
+            adj_layout="ell", ell_cap=2, dist_layout="row_sparse", dist_cap=2,
+            device=device)
+
+    gpu, cpu = engine(cuda), engine("cpu")
+    stream = with_deletions(so_like(n_vertices=24, n_edges=160, seed=4),
+                            ratio=0.05, seed=2)
+    launches = (b1.maxmin_matmul_fused.launches, b5.ell_gather_contract.launches,
+                b6.rowsparse_gather.launches)
+    nxt = 2.0
+    for sgt in stream:
+        if sgt.ts >= nxt:
+            gpu.expire(sgt.ts)
+            cpu.expire(sgt.ts)
+            while nxt <= sgt.ts:
+                nxt += 2.0
+        if sgt.op == "+":
+            assert gpu.insert(*sgt.as_edge()) == cpu.insert(*sgt.as_edge())
+        else:
+            assert gpu.delete(*sgt.as_edge()) == cpu.delete(*sgt.as_edge())
+    for a, b in zip(gpu.executor.arrays.dist, cpu.executor.arrays.dist):
+        assert torch.equal(a.cpu(), b)
+    assert gpu.executor.dist_stats == cpu.executor.dist_stats
+    assert gpu.executor.frontier_stats == cpu.executor.frontier_stats
+    st, dst = gpu.executor.frontier_stats, gpu.executor.dist_stats
+    assert st["fallbacks"] >= 1 and dst["repacks"] >= 1 and dst["lost"] == 0
+    inserts_kept = ((st["dispatches"] - st["delete_dispatches"])
+                    - (st["fallbacks"] - st["delete_fallbacks"]))
+    runs = (b1.maxmin_matmul_fused.launches - launches[0],
+            b5.ell_gather_contract.launches - launches[1],
+            b6.rowsparse_gather.launches - launches[2])
+    assert runs == (0, gpu.total_rounds, inserts_kept)

@@ -87,10 +87,10 @@ def test_unported_paths_raise():
                                device="cpu")
     PersistentQueryService(window=5.0, slide=1.0, frontier="auto",
                            adj_layout="ell", device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        PersistentQueryService(window=5.0, slide=1.0, dist_layout="row_sparse",
-                               device="cpu")
-    for kw in ({"frontier": "sideways"}, {"adj_layout": "csr"}):
+    PersistentQueryService(window=5.0, slide=1.0, dist_layout="row_sparse",
+                           device="cpu")
+    for kw in ({"frontier": "sideways"}, {"adj_layout": "csr"},
+               {"dist_layout": "sparse"}):
         with pytest.raises(ValueError):
             PersistentQueryService(window=5.0, slide=1.0, device="cpu", **kw)
     svc = PersistentQueryService(window=5.0, slide=1.0, device="cpu")
@@ -129,7 +129,9 @@ def test_frontier_service_report_for_report(adj_layout):
 def test_import_loads_neither_jax_nor_the_reference_package():
     code = ("import sys, repro_torch, repro_torch.core, "
             "repro_torch.streaming.service, repro_torch.kernels.maxmin.maxmin, "
-            "repro_torch.kernels.ell.ell, repro_torch.core.sparse_adj; "
+            "repro_torch.kernels.ell.ell, repro_torch.core.sparse_adj, "
+            "repro_torch.core.sparse_dist, "
+            "repro_torch.kernels.rowsparse.rowsparse; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.')]; "
             "assert not bad, bad")
