@@ -7,10 +7,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. device: the card's name, count, and ``nvidia-smi`` name and power
    limit. Fails without CUDA, and when run outside a checkout of the repo.
-2. build: kernels B1 (``src/repro_torch/csrc/maxmin.cu``), B5
-   (``src/repro_torch/csrc/ell.cu``) and B6 (``src/repro_torch/csrc/
-   rowsparse.cu``) with nvcc for sm_90a, one nvcc each, started together;
-   prints the build seconds and ptxas' registers, shared memory and spills.
+2. build: kernels B1 and B2 (``src/repro_torch/csrc/maxmin.cu``), B5
+   (``src/repro_torch/csrc/ell.cu``), B6 (``src/repro_torch/csrc/
+   rowsparse.cu``) and B3 and B4 (``src/repro_torch/csrc/bucket.cu``) with
+   nvcc for sm_90a, one nvcc each, started together; prints the build
+   seconds and ptxas' registers, shared memory and spills.
 3. kernel: B1, B5 and B6 against their plain PyTorch versions on the card
    with ``torch.equal`` (tolerance 0: max and min never reassociate) on
    the test shapes (B1 also in float16), B1 at the dense path's shape and
@@ -62,6 +63,40 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    times beside the bound, the plain version and the PyTorch yardstick
    (``torch.full(-inf).scatter_reduce_(1, idx, ts, "amax")``), which the
    port never calls.
+10. end to end, the bucket backend: phase 4's and then phase 8's service
+   configuration with the 11 Table-2 queries registered with
+   ``backend=BucketBackend(n_levels=8)`` (step 2.5 s), each fed the whole
+   stream of that phase (its main run, then its traced window). The
+   float service of phase 4 or 8 is the bucket run's twin: it got the
+   same sgts, ran B1 or B5 once per round and equalled its reference
+   RAPQ engines. Asserts that every reference result pair is in the
+   bucket run's results; at the end, that the bucket's currently valid
+   pairs contain the twin's and each extra pair's true bottleneck (the
+   twin's dist) lies within one level step below its query's threshold,
+   and that the bucket dist equals the twin's dist mapped through the
+   level grid (the origin-free guard); that on the dense adjacency B3 ran
+   once per bucket closure round (B1, B5 and B6 never), and on phase 8's
+   ELL adjacency and row-sparse dist B5's int32 entry ran once per round
+   and B6 once per frontier insert that did not fall back (B1 and B3
+   never). Each
+   run's last window (the twin's traced sgts) runs under
+   ``torch.profiler``: its top device kernels.
+11. B3, B4, B2 and B5 on int32 levels against their plain versions
+   (``torch.equal``) on the test shapes and at the path's shapes (B3 at
+   (J, 2048, 2048, 2048, T=9) and at the frontier's m in {4, 32}; B2 and
+   B4 at 2048^3; B5-int32 at phase 6's frontier shape, on phase 6's
+   operands encoded to levels); CUDA-event times beside the bound (the
+   larger of bytes over 3.35 TB/s and 2*J*m*k*n*T int8 operations over
+   1979 TOP/s for B3/B4), the plain version and the library yardstick (T
+   ``torch.bmm`` calls on bf16 0/1 operands, then the compare and sum),
+   which the port never calls.
+12. the legacy single-query round: phase 4's final dense adjacency and
+   Q1's DFA at n_slots=2048. ``closure`` from -inf with the "cuda"
+   backend (B2) is ``torch.equal`` to "plain", with B2 launched once per
+   transition per round; the same with ``BucketBackend`` (B4) on encoded
+   levels against its plain versions, whose decoded result is the float
+   closure mapped through the grid; ``valid_pairs`` at phase 4's clock
+   equals phase 4's dense engine's valid pairs for Q1.
 
 The last three lines of standard output are the kernels JSON line, the
 ``nvidia-smi`` name/power-limit line, and the ``{"ok": true, ...}`` line.
@@ -98,13 +133,18 @@ B5_CASES = [(2, 5, 12, 3), (1, 1, 9, 1), (3, 7, 13, 2), (4, 16, 33, 4),
             (1, 130, 257, 8), (48, 4, 2048, 2), (6, 300, 700, 5)]
 B6_CASES = [(12, 4, 30), (5, 1, 33), (9, 16, 257), (7, 8, 40), (3, 64, 100),
             (40, 256, 4097), (17, 128, 2049), (192, 4, 32768)]
-KERNELS = ("maxmin", "ell", "rowsparse")
+KERNELS = ("maxmin", "ell", "rowsparse", "bucket")
 SKINNY_M = (4, 32)        # frontier rows of B1's skinny slabs
 
 PROFILE_SGTS = 24         # sgts of the traced window after the main run
 CONFLICT_BEFORE_END = 40  # inserts of the main run after the Q3 conflict
 PEAK_F32_OPS = 67e12      # H100 SXM, float32 outside the tensor cores
+PEAK_INT8_OPS = 1979e12   # H100 SXM, dense int8 on the tensor cores
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
+BUCKET_LEVELS = 8         # phase 10's BucketBackend(n_levels=8): T = 9
+ELL_SLOTS = 8192          # the frontier + ELL service's n_slots (phases 6-10)
+ELL_LAYOUT = dict(frontier="auto", frontier_cap=4, adj_layout="ell", ell_cap=2)
+RS_DIST = dict(dist_layout="row_sparse", dist_cap=4)   # phases 8 and 10
 
 
 def fail(msg: str) -> None:
@@ -218,6 +258,22 @@ def bound_b6_ms(m: int, c: int, e: int, live_slots: int):
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def ptxas_summary(name: str):
+    """nvcc seconds and the largest registers, shared memory and spill
+    stores ptxas printed for any kernel of ``csrc/<name>.cu``."""
+    from repro_torch.kernels import build
+
+    info = build.BUILD_INFO[name]
+    log = str(info["log"])
+
+    def most(pat):
+        return max([int(x) for x in re.findall(pat, log)] or [0])
+
+    return {"build_s": info["seconds"], "registers": most(r"Used (\d+) registers"),
+            "smem_bytes": most(r"(\d+) bytes smem"),
+            "spill_bytes": most(r"(\d+) bytes spill stores")}
+
+
 def print_build_log(name: str, info) -> None:
     for line in str(info["log"]).splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -245,7 +301,7 @@ def main() -> None:
     ap.add_argument("--ell-inserts", type=int, default=2048,
                     help="insert sgts of the frontier + ELL stream (>= 256)")
     args = ap.parse_args()
-    if args.edges < 256 or args.ell_inserts < 256:
+    if min(args.edges, args.ell_inserts) < 256:
         fail("--edges and --ell-inserts must be at least 256")
     if not all((ROOT / "src" / "repro_torch" / "csrc" / f"{k}.cu").is_file()
                for k in KERNELS):
@@ -284,7 +340,7 @@ def main() -> None:
     build.build_all(KERNELS)   # one nvcc each, started together
     for name in KERNELS:
         build.load(name)
-    print(f"[build] maxmin.cu, ell.cu and rowsparse.cu: "
+    print(f"[build] maxmin.cu, ell.cu, rowsparse.cu and bucket.cu: "
           f"{time.perf_counter() - t0:.3f} s wall", flush=True)
     for name in KERNELS:
         info = build.BUILD_INFO[name]
@@ -502,10 +558,17 @@ def main() -> None:
     print(f"[e2e] Q3 simple: {len(q3_simple)} pairs after the fallback, "
           f"host RSPQ {len(exact)}, Q3 {n_results['Q3']}; J={J} before the "
           f"fallback, {group.btt.qidx.shape[0]} after", flush=True)
+    # phase 12's operands: the final dense adjacency, the clock and Q1's
+    # currently valid pairs
+    legacy_in = {"adj": ex.dense_adj().clone(), "labels": list(group.labels),
+                 "now": ex.arrays.now.clone(), "window": window,
+                 "valid": ex.emit(group.tables)[group.lane_of("Q1")].clone()}
 
     # -- 5. a traced window of the same path -----------------------------------
     trace_window(torch, lambda: svc.ingest(Stream(tail), record_latency=True),
                  len(tail), "trace")
+    # phase 10's float twin: this service's final state and its sgts
+    dense_twin = float_twin(torch, svc, group, queries, tuples, tail)
 
     del svc, group, ex
     torch.cuda.empty_cache()
@@ -519,61 +582,68 @@ def main() -> None:
           f"{ell_err}", flush=True)
 
     # -- 8. end to end: the row-sparse dist, phase 6's service and stream -------
-    rs = ell_phase(torch, queries, args.ell_inserts, device=None,
-                   dist_layout="row_sparse", dist_cap=4, against=ell)
+    rs = ell_phase(torch, queries, args.ell_inserts, device=None, **RS_DIST,
+                   against=ell)
 
     # -- 9. B6 at the path's shapes, on this run's operands ---------------------
     b6_rows = b6_at_path_shapes(torch, gen, rs, check_b6)
     print(f"[kernel] B6 == plain (torch.equal) on every shape; max |err| "
           f"{rs_err}", flush=True)
 
+    # -- 10. end to end: the bucket backend, against phases 4 and 6 -------------
+    bk = bucket_phase(torch, queries, dense_twin, n_slots, "bucket", device=None)
+    del dense_twin
+    bk_rs = bucket_phase(torch, queries, rs.pop("twin"), ELL_SLOTS, "bucket-rs",
+                         device=None, **ELL_LAYOUT, **RS_DIST)
+
+    # -- 11. B3, B4, B2 and B5-int32 against their plain versions, timed -------
+    lvl_rows = level_kernels_phase(torch, gen, bk["J"], n_slots, b5_rows)
+
+    # -- 12. the legacy single-query round --------------------------------------
+    legacy = legacy_phase(torch, queries["Q1"], legacy_in, device=None)
+
     ms, bms, by, plain = timings[N]
-    e5 = b5_rows["dense"]
-    print(json.dumps({"kernels": [{
-        "name": "B1 maxmin_fused",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/maxmin.cu",
-        "replaces": "src/repro/kernels/maxmin/maxmin.py:138",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain,
-        "bound_ms": bms,
-        "bound_by": by,
-        "library_ms": None,
-    }, {
-        "name": "B5 ell_gather_contract",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/ell.cu",
-        "replaces": "src/repro/kernels/ell/ell.py:39",
-        "launches": ell["launches"],
-        "max_abs_err": ell_err,
-        "ms": e5["ms"],
-        "plain_ms": e5["plain_ms"],
-        "bound_ms": e5["bound_ms"],
-        "bound_by": e5["bound_by"],
-        "library_ms": e5["library_ms"],
-        "shape": e5["shape"],
-    }, {
-        "name": "B6 rowsparse_gather",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/rowsparse.cu",
-        "replaces": "src/repro/kernels/rowsparse/rowsparse.py:40",
-        "launches": rs["b6_launches"],
-        "max_abs_err": rs_err,
-        "ms": b6_rows["path"]["ms"],
-        "plain_ms": b6_rows["path"]["plain_ms"],
-        "bound_ms": b6_rows["path"]["bound_ms"],
-        "bound_by": b6_rows["path"]["bound_by"],
-        "library_ms": b6_rows["path"]["library_ms"],
-        "shape": b6_rows["path"]["shape"],
-    }]}), flush=True)
+    e5, b6p = b5_rows["dense"], b6_rows["path"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+
+    def row(name, src, replaces, launches, err, data):
+        """One kernel's JSON entry, with its source's nvcc seconds and
+        ptxas' registers, shared memory and spill stores."""
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{src}.cu", "replaces": replaces,
+                "launches": launches, "max_abs_err": err,
+                **{k: data.get(k) for k in keys}, **ptxas_summary(src)}
+
+    kernels = [
+        row("B1 maxmin_matmul_fused", "maxmin",
+            "src/repro/kernels/maxmin/maxmin.py:138", launches, max_err,
+            {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+             "shape": [J, N, N, N]}),
+        row("B2 maxmin_matmul", "maxmin", "src/repro/kernels/maxmin/maxmin.py:67",
+            legacy["b2_launches"], lvl_rows["B2"]["max_abs_err"], lvl_rows["B2"]),
+        row("B3 bucket_maxmin_fused", "bucket",
+            "src/repro/kernels/bucket/bucket.py:93", bk["launches"][0],
+            lvl_rows["B3"]["max_abs_err"], lvl_rows["B3"]),
+        row("B4 bucket_maxmin", "bucket", "src/repro/kernels/bucket/bucket.py:24",
+            legacy["b4_launches"], lvl_rows["B4"]["max_abs_err"], lvl_rows["B4"]),
+        {**row("B5 ell_gather_contract", "ell", "src/repro/kernels/ell/ell.py:39",
+               ell["launches"], ell_err, e5),
+         # the int32 entry (bucket levels): its launches in phase 10's
+         # ELL + row-sparse run, every one of that run's rounds
+         "s32": {"launches": bk_rs["launches"][2],
+                 "max_abs_err": lvl_rows["B5-int32"]["max_abs_err"],
+                 **{k: lvl_rows["B5-int32"][k] for k in keys}}},
+        row("B6 rowsparse_gather", "rowsparse",
+            "src/repro/kernels/rowsparse/rowsparse.py:40", rs["b6_launches"],
+            rs_err, b6p),
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
 
 
-def ell_phase(torch, queries, n_inserts: int, device=None, n_slots: int = 8192,
+def ell_phase(torch, queries, n_inserts: int, device=None, n_slots: int = ELL_SLOTS,
               dist_layout: str = "dense", dist_cap: int = 16, against=None):
     """Phase 6 (``dist_layout="dense"``) and phase 8 (``"row_sparse"``):
     the frontier + ELL service path at ``n_slots`` against the reference
@@ -593,8 +663,7 @@ def ell_phase(torch, queries, n_inserts: int, device=None, n_slots: int = 8192,
     row_sparse = dist_layout == "row_sparse"
     tag = "rs" if row_sparse else "ell"
     window, slide = 20.0, 2.0
-    svc = PersistentQueryService(window=window, slide=slide, frontier="auto",
-                                 frontier_cap=4, adj_layout="ell", ell_cap=2,
+    svc = PersistentQueryService(window=window, slide=slide, **ELL_LAYOUT,
                                  dist_layout=dist_layout, dist_cap=dist_cap,
                                  device=device)
     for name, expr in queries.items():
@@ -736,6 +805,10 @@ def ell_phase(torch, queries, n_inserts: int, device=None, n_slots: int = 8192,
     out = {"launches": launches, "b6_launches": b6_launches, "logs": logs,
            "invalidated": report.invalidated, "frontier": fst,
            "frontier_cap": ex.frontier_cap}
+    if row_sparse:
+        # phase 10's float twin: this service's final state and its sgts
+        out["twin"] = float_twin(torch, svc, group, queries, tuples,
+                                 tail if on_card else [])
     a = ex.arrays
     if row_sparse:
         # phase 9's operands: each lane's F slot rows with the most entries
@@ -842,6 +915,13 @@ def b5_at_path_shapes(torch, ell, check_b5):
                                    "amax", include_self=True)
 
     rows = {}
+    # phase 11's B5-int32 operands: the frontier shape's, encoded to levels
+    # on the grid of the run's latest timestamp and the 20 s window
+    from repro_torch.core.contraction import BucketBackend
+    clock = ts.max()
+    enc = BucketBackend(BUCKET_LEVELS)
+    rows["s32_operands"] = (enc.encode(d_f, clock, 20.0), idx,
+                            enc.encode(ts, clock, 20.0))
     for tag, dd, reps in (("frontier", d_f, 20), ("dense", d, 3)):
         m = dd.shape[1]
         check_b5(dd, idx, ts, f"{tag} shape J={j} M={m} U={n} E={e}")
@@ -864,6 +944,385 @@ def b5_at_path_shapes(torch, ell, check_b5):
     del d, d_f, idx, ts
     torch.cuda.empty_cache()
     return rows
+
+
+def float_twin(torch, svc, group, queries, timed, tail):
+    """A float service's final state, the twin phase 10's bucket run is
+    held against: per query its dist, finals mask and currently valid
+    pairs (copied to the host, so the bucket run has the card to itself)
+    and its reference engine's results; the slot map, the clock, and the
+    sgts it was fed (``timed`` in its timed run, then ``tail``)."""
+    ex = group.executor
+    lanes = [group.lane_of(name) for name in queries]
+    dist, valid = ex.dense_dist(), ex.emit(group.tables)
+    return {"dist": [dist[lane].to("cpu", copy=True) for lane in lanes],
+            "valid": [valid[lane].to("cpu", copy=True) for lane in lanes],
+            "finals": [group.finals_mask[lane].to("cpu", copy=True)
+                       for lane in lanes],
+            "ref": {name: set(svc.results(f"{name}_ref")) for name in queries},
+            "slot_of": dict(group.slot_of), "now": ex.arrays.now.cpu(),
+            "timed": list(timed), "tail": list(tail)}
+
+
+def bucket_phase(torch, queries, twin, n_slots: int, tag: str, device=None,
+                 **layout):
+    """Phase 10: the 11 queries as one dense group with the bucket backend
+    (``BucketBackend(n_levels=8)``) in the service configuration of a float
+    run (``layout``, ``n_slots``), fed that run's sgts; held against that
+    run's final state and reference results (``twin``, from
+    ``float_twin``) with the checks listed in the module docstring. With
+    ``adj_layout="ell"`` every round runs B5's int32 entry, otherwise B3.
+    ``device`` and ``n_slots`` let the same code rehearse on the CPU at a
+    small size. Returns the run's counts."""
+    from repro_torch.core.contraction import BucketBackend
+    from repro_torch.kernels.bucket import bucket as b3
+    from repro_torch.kernels.ell import ell as b5
+    from repro_torch.kernels.maxmin import maxmin as b1
+    from repro_torch.kernels.rowsparse import rowsparse as b6
+    from repro_torch.streaming.service import PersistentQueryService
+    from repro_torch.streaming.stream import Stream
+
+    on_card = device is None
+    window, slide = 20.0, 2.0
+    svc = PersistentQueryService(window=window, slide=slide, device=device,
+                                 **layout)
+    for name, expr in queries.items():
+        svc.register(name, expr, engine="dense", n_slots=n_slots, batch_size=1,
+                     backend=BucketBackend(n_levels=BUCKET_LEVELS))
+    bg = svc.queries["Q1"]
+    ex = bg.executor
+    dev = ex.arrays.now.device
+    timed_part, tail = twin["timed"], twin["tail"]
+    tuples = timed_part + tail
+    n_del = sum(1 for s in tuples if s.op == "-")
+    rounds0, steps0 = ex.rounds_total, ex.steps
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    b1.maxmin_matmul_fused.launches = 0
+    b3.bucket_maxmin_fused.launches = 0
+    b5.ell_gather_contract.launches = 0
+    b6.rowsparse_gather.launches = 0
+    t0 = time.perf_counter()
+    svc.ingest(Stream(timed_part), record_latency=True)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lat = sorted(svc.stats["Q1"].latencies_us)
+    if on_card:
+        trace_window(torch, lambda: svc.ingest(Stream(tail)), len(tail),
+                     f"{tag}-trace", top=10)
+    elif tail:
+        svc.ingest(Stream(tail))
+    launches = (b3.bucket_maxmin_fused.launches, b1.maxmin_matmul_fused.launches,
+                b5.ell_gather_contract.launches, b6.rowsparse_gather.launches)
+    rounds = ex.rounds_total - rounds0
+    steps = ex.steps - steps0
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    J, N, K, Q = bg.btt.qidx.shape[0], bg.n_slots, bg.k, bg.q_cap
+    ell = layout.get("adj_layout") == "ell"
+    # B6 gathers the raw rows once per frontier insert that did not fall back
+    fst = ex.frontier_stats
+    b6_expected = ((fst["dispatches"] - fst["delete_dispatches"])
+                   - (fst["fallbacks"] - fst["delete_fallbacks"])
+                   if layout.get("dist_layout") == "row_sparse" else 0)
+    print(f"[{tag}] mxu_bucket, n_levels={BUCKET_LEVELS}, {layout or 'dense'}: "
+          f"{Q} lanes, J={J}, K={K}, N={N}; {len(tuples) - n_del} inserts + "
+          f"{n_del} deletions = {len(tuples)} sgts; the first {len(timed_part)} "
+          f"in {wall:.3f} s = {len(timed_part) / wall:.3f} sgts/s, dispatch p50 "
+          f"{lat[len(lat) // 2] / 1e3:.3f} ms, p99 "
+          f"{lat[min(int(0.99 * len(lat)), len(lat) - 1)] / 1e3:.3f} ms; all "
+          f"{len(tuples)}: {steps} dispatches, {rounds} closure rounds; launches "
+          f"B3 {launches[0]}, B1 {launches[1]}, B5{'-int32' if ell else ''} "
+          f"{launches[2]}, B6 {launches[3]}; peak device memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB)", flush=True)
+
+    expected = ((0, 0, rounds) if ell else (rounds, 0, 0)) + (b6_expected,)
+    if on_card and not (launches == expected and rounds > 0):
+        fail(f"{tag} run: launches (B3, B1, B5, B6) {launches} != {expected}")
+    missing = [n for n in queries if not twin["ref"][n] <= svc.results(n)]
+    if missing:
+        fail(f"{tag} results miss reference result pairs for {missing}")
+    if bg.slot_of != twin["slot_of"]:
+        fail(f"{tag} and its float twin interned the vertices to different slots")
+    # at the end: validity, the bottleneck bound and the origin-free guard
+    now = twin["now"].to(dev)
+    if not torch.equal(now, ex.arrays.now):
+        fail(f"{tag} ended at another clock than its float twin")
+    w = torch.tensor(window, dtype=torch.float32, device=dev)
+    step = w / BUCKET_LEVELS
+    origin = torch.floor((now - w) / step) * step
+    low = now - w
+    vb, dist_b = ex.emit(bg.tables), ex.dense_dist()
+    n_extra = n_grid = 0
+    for i, name in enumerate(queries):
+        lb = bg.lane_of(name)
+        vt, dt = twin["valid"][i].to(dev), twin["dist"][i].to(dev)
+        if bool((vt & ~vb[lb]).any()):
+            fail(f"{name}: a pair valid in the float twin is not valid in the "
+                 f"{tag} run")
+        fin = twin["finals"][i].to(dev)
+        best = dt.masked_fill(~fin[None, None, :], float("-inf")).amax(2)
+        extra = best[vb[lb] & ~vt]
+        n_extra += extra.numel()
+        if bool(((extra < low - step - 1e-4) | (extra > low + 1e-4)).any()):
+            fail(f"{name}: an extra {tag} pair's true bottleneck lies more "
+                 "than one level step below the threshold")
+        db = dist_b[lb]
+        dt = dt[..., : db.shape[2]]
+        fin_b = torch.isfinite(db)
+        expected_d = torch.ceil(dt / step) * step
+        if not torch.equal(db[fin_b], expected_d[fin_b]):
+            fail(f"{name}: the {tag} dist is not the float twin's dist mapped "
+                 "through the level grid")
+        if bool((dt[~fin_b] > origin + 1e-4).any()):
+            fail(f"{name}: the {tag} run dropped a value above the window origin")
+        n_grid += int(fin_b.sum())
+        del vt, dt, best, db, fin_b, expected_d
+    n_ref = sum(len(twin["ref"][n]) for n in queries)
+    n_bucket = sum(len(svc.results(n)) for n in queries)
+    print(f"[{tag}] results: reference {n_ref} pairs, all in the bucket run's "
+          f"{n_bucket}; at the end {n_extra} extra valid pairs, each within one "
+          f"level step ({float(step):.3f} s) below its threshold; {n_grid} "
+          f"finite bucket entries == the float twin's grid-mapped dist",
+          flush=True)
+    out = {"J": J, "launches": launches, "rounds": rounds}
+    del svc, bg, ex, vb, dist_b
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def bound_level_ms(j: int, m: int, k: int, n: int, t_levels: int):
+    """(bound in ms, "bytes" | "operations") of one level product: int32
+    inputs read once and the int32 output written once, against T boolean
+    products of 2*m*k*n int8 operations each on the tensor cores."""
+    t_bytes = 4 * (j * m * k + j * k * n + j * m * n) / PEAK_BYTES
+    t_ops = 2.0 * j * m * k * n * t_levels / PEAK_INT8_OPS
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def level_kernels_phase(torch, gen, j_path: int, n: int, b5_rows):
+    """Phase 11: B3, B4, B2 and B5-int32 against their plain versions on the
+    test shapes and at the path's shapes, then timed beside the bound, the
+    plain version and the library yardstick. Returns the JSON rows' data."""
+    from repro_torch.kernels.bucket import bucket as b3
+    from repro_torch.kernels.bucket.ref import bucket_maxmin_fused_ref, bucket_maxmin_ref
+    from repro_torch.kernels.ell import ell as b5
+    from repro_torch.kernels.ell.ref import ell_gather_contract_ref
+    from repro_torch.kernels.maxmin import maxmin as b1
+    from repro_torch.kernels.maxmin.ref import maxmin_matmul_ref
+
+    t_lv = BUCKET_LEVELS + 1
+
+    def levels(shape, t):
+        return torch.randint(0, t + 1, shape, generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    errs = {"B2": 0.0, "B3": 0.0, "B4": 0.0, "B5-int32": 0.0}
+
+    def same(out, ref, what):
+        """Fails unless ``out`` equals ``ref``; keeps the largest |out - ref|
+        per kernel (the name that starts ``what``) for the JSON line."""
+        diff = (out.float() - ref.float()).abs().masked_fill(out == ref, 0.0)
+        err = float(diff.max()) if diff.numel() else 0.0
+        key = what.split()[0]
+        errs[key] = max(errs[key], err)
+        if not torch.equal(out, ref):
+            fail(f"{what} differs from its plain version: max |err| {err}")
+
+    # test shapes (tests/test_torch_gpu.py: BUCKET_CASES, CASES)
+    for (j, m, k, nn, t) in ((1, 16, 16, 16, 4), (1, 128, 128, 128, 8),
+                             (1, 70, 200, 90, 3), (1, 1, 130, 257, 6),
+                             (1, 1, 7, 5, 1), (3, 33, 70, 9, 9),
+                             (3, 4, 2048, 100, 9), (5, 65, 129, 63, 20),
+                             (2, 100, 1, 3, 9)):
+        a, b = levels((j, m, k), t + 2), levels((j, k, nn), t + 2)
+        same(b3.bucket_maxmin_fused(a, b, n_levels=t),
+             bucket_maxmin_fused_ref(a, b, t), f"B3 at {(j, m, k, nn, t)}")
+        same(b3.bucket_maxmin(a[0].contiguous(), b[0].contiguous(), n_levels=t),
+             bucket_maxmin_ref(a[0], b[0], t), f"B4 at {(m, k, nn, t)}")
+    for dtype in (torch.float32, torch.float16):
+        for (m, k, nn) in SHAPES:
+            a = torch.rand((m, k), generator=gen, device="cuda").to(dtype)
+            b = torch.rand((k, nn), generator=gen, device="cuda").to(dtype)
+            a[: max(1, m // 7)] = float("-inf")
+            same(b1.maxmin_matmul(a, b), maxmin_matmul_ref(a, b),
+                 f"B2 at {(m, k, nn)} {dtype}")
+    for (j, m, u, e) in B5_CASES:
+        d, ts = levels((j, m, u), t_lv), levels((j, u, e), t_lv)
+        idx = torch.randint(0, u, (j, u, e), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        same(b5.ell_gather_contract(d, idx, ts),
+             ell_gather_contract_ref(d, idx, ts, zero=0), f"B5-int32 at {(j, m, u, e)}")
+    print(f"[kernel] B3, B4 == plain (torch.equal) on 9 test shapes, B2 on "
+          f"{len(SHAPES)} float32 and float16, B5-int32 on {len(B5_CASES)}",
+          flush=True)
+
+    rows = {}
+    # B3 at the dense round's (J, N, N, N) and the frontier's skinny slabs
+    a, b = levels((j_path, n, n), t_lv), levels((j_path, n, n), t_lv)
+    for m in SKINNY_M:
+        am = a[:, :m].contiguous()
+        same(b3.bucket_maxmin_fused(am, b, n_levels=t_lv),
+             bucket_maxmin_fused_ref(am, b, t_lv), f"B3 at J={j_path} m={m} N={n}")
+    out = b3.bucket_maxmin_fused(a, b, n_levels=t_lv)
+    same(out, bucket_maxmin_fused_ref(a, b, t_lv), f"B3 at J={j_path} N={n}")
+
+    def bmm_yardstick(x, y):
+        acc = torch.zeros(x.shape[:-1] + y.shape[-1:], dtype=torch.int32,
+                          device=x.device)
+        for theta in range(1, t_lv + 1):
+            acc += (torch.matmul((x >= theta).to(torch.bfloat16),
+                                 (y >= theta).to(torch.bfloat16)) > 0.5).to(torch.int32)
+        return acc
+
+    if not torch.equal(bmm_yardstick(a, b), out):
+        fail("the bmm yardstick differs from B3")
+    del out
+    rows["B3"] = timed(torch, lambda: b3.bucket_maxmin_fused(a, b, n_levels=t_lv),
+                       lambda: bucket_maxmin_fused_ref(a, b, t_lv),
+                       lambda: bmm_yardstick(a, b), 10, 2,
+                       bound_level_ms(j_path, n, n, n, t_lv),
+                       [j_path, n, n, n, t_lv], "B3")
+    a1, b1_ = a[0].contiguous(), b[0].contiguous()
+    del a, b
+    torch.cuda.empty_cache()
+    same(b3.bucket_maxmin(a1, b1_, n_levels=t_lv), bucket_maxmin_ref(a1, b1_, t_lv),
+         f"B4 at {n}^3")
+    rows["B4"] = timed(torch, lambda: b3.bucket_maxmin(a1, b1_, n_levels=t_lv),
+                       lambda: bucket_maxmin_ref(a1, b1_, t_lv),
+                       lambda: bmm_yardstick(a1, b1_), 20, 5,
+                       bound_level_ms(1, n, n, n, t_lv), [n, n, n, t_lv], "B4")
+    # B2 at (N, N) x (N, N) float32
+    x = torch.rand((n, n), generator=gen, device="cuda") * 1000.0
+    y = torch.rand((n, n), generator=gen, device="cuda") * 1000.0
+    x[torch.rand((n, n), generator=gen, device="cuda") > 0.7] = float("-inf")
+    same(b1.maxmin_matmul(x, y), maxmin_matmul_ref(x, y), f"B2 at {n}^3")
+    rows["B2"] = timed(torch, lambda: b1.maxmin_matmul(x, y),
+                       lambda: maxmin_matmul_ref(x, y), None, 10, 1,
+                       bound_ms(1, n, n, n), [n, n, n], "B2")
+    # B5-int32 at phase 6's frontier shape, on its operands encoded to levels
+    d, idx, ts = b5_rows.pop("s32_operands")
+    j, m, u = d.shape
+    e = idx.shape[2]
+    same(b5.ell_gather_contract(d, idx, ts),
+         ell_gather_contract_ref(d, idx, ts, zero=0), f"B5-int32 at {(j, m, u, e)}")
+    idx_l = idx.long().reshape(j, 1, u * e)
+
+    def ell_yardstick():
+        cand = torch.minimum(d[:, :, :, None], ts[:, None])           # call 1
+        o = torch.zeros(d.shape, dtype=torch.int32, device=d.device)
+        return o.scatter_reduce_(2, idx_l.expand(-1, m, -1),           # call 2
+                                 cand.reshape(j, m, u * e), "amax", include_self=True)
+
+    if not torch.equal(ell_yardstick(), b5.ell_gather_contract(d, idx, ts)):
+        fail("the two-call yardstick differs from B5-int32")
+    cands = int((d > 0).sum()) * e
+    t_bytes = (4 * 2 * j * m * u + 8 * j * u * e) / PEAK_BYTES
+    t_ops = 2.0 * cands / PEAK_F32_OPS
+    rows["B5-int32"] = timed(
+        torch, lambda: b5.ell_gather_contract(d, idx, ts),
+        lambda: ell_gather_contract_ref(d, idx, ts, zero=0), ell_yardstick, 20, 5,
+        (max(t_bytes, t_ops) * 1e3, "operations" if t_ops >= t_bytes else "bytes"),
+        [j, m, u, e], "B5-int32")
+    del d, idx, ts, x, y, a1, b1_
+    torch.cuda.empty_cache()
+    for key, err in errs.items():
+        rows[key]["max_abs_err"] = err
+    return rows
+
+
+def timed(torch, kernel, plain, library, reps: int, plain_reps: int, bound,
+          shape, tag: str):
+    """CUDA-event times of a kernel, its plain version and its library
+    yardstick (None: no PyTorch call computes it), printed beside the
+    bound; returns the JSON row's numbers."""
+    ms = time_cuda(torch, kernel, reps)
+    plain_ms = time_cuda(torch, plain, plain_reps)
+    lib_ms = time_cuda(torch, library, max(1, reps // 2)) if library else None
+    bms, by = bound
+    print(f"[kernel] {tag} at {shape}: {ms:.3f} ms, bound {bms:.3f} ms ({by}), "
+          f"{100 * bms / ms:.1f}% of bound; plain {plain_ms:.3f} ms; yardstick "
+          f"{'%.3f ms' % lib_ms if lib_ms is not None else 'none'}", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
+            "bound_by": by, "shape": shape}
+
+
+def legacy_phase(torch, expr: str, legacy_in, device=None):
+    """Phase 12: the legacy single-query closure over phase 4's final
+    adjacency for one query (``expr``, Q1's) from -inf: the "cuda" backend
+    (B2) against "plain", the bucket backend (B4) against its plain
+    versions, launches per transition per round, the grid guard between
+    the two, and ``valid_pairs`` at phase 4's clock against phase 4's
+    engine. ``device`` lets it rehearse on the CPU. Returns the counts."""
+    from repro_torch.core.automaton import compile_query
+    from repro_torch.core.contraction import BucketBackend
+    from repro_torch.core.semiring import TransitionTable, closure, valid_pairs
+    from repro_torch.kernels.bucket import bucket as b4
+    from repro_torch.kernels.maxmin import maxmin as b2
+
+    on_card = device is None
+    dfa = compile_query(expr)
+    tt = TransitionTable.from_dfa(dfa, device=device)
+    labels = legacy_in["labels"]
+    adj = legacy_in["adj"][[labels.index(lab) for lab in dfa.labels]]
+    n = adj.shape[1]
+    n_trans = tt.src.shape[0]
+    dist0 = torch.full((n, n, dfa.k), float("-inf"), device=adj.device)
+    out = {}
+    b2.maxmin_matmul.launches = 0
+    b4.bucket_maxmin.launches = 0
+    t0 = time.perf_counter()
+    d_f, rounds = closure(dist0, adj, tt, "cuda")
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["b2_launches"] = b2.maxmin_matmul.launches
+    d_p, rounds_p = closure(dist0, adj, tt, "plain")
+    if not (torch.equal(d_f, d_p) and rounds == rounds_p):
+        fail("the legacy closure with B2 differs from the plain one")
+    if on_card and out["b2_launches"] != n_trans * rounds:
+        fail(f"B2 launches {out['b2_launches']} != {n_trans} transitions x "
+             f"{rounds} rounds")
+    finals = torch.tensor([s in dfa.finals for s in range(dfa.k)], device=adj.device)
+    now = legacy_in["now"]
+    w = torch.tensor(legacy_in["window"], dtype=torch.float32, device=now.device)
+    valid = valid_pairs(d_f, finals, now - w)
+    if not torch.equal(valid, legacy_in["valid"]):
+        fail("valid_pairs of the legacy closure differ from the dense engine's "
+             "valid pairs for Q1")
+    bucket = BucketBackend(BUCKET_LEVELS)
+    d_l, a_l = bucket.prepare_state(dist0, adj, now, w)
+    t1 = time.perf_counter()
+    o_l, rounds_l = closure(d_l, a_l, tt, bucket)
+    if on_card:
+        torch.cuda.synchronize()
+    wall_l = time.perf_counter() - t1
+    out["b4_launches"] = b4.bucket_maxmin.launches
+    o_p, rounds_lp = closure(d_l, a_l, tt, BucketBackend(BUCKET_LEVELS,
+                                                         use_kernels=False))
+    if not (torch.equal(o_l, o_p) and rounds_l == rounds_lp):
+        fail("the legacy closure with B4 differs from the plain bucket one")
+    if on_card and out["b4_launches"] != n_trans * rounds_l:
+        fail(f"B4 launches {out['b4_launches']} != {n_trans} transitions x "
+             f"{rounds_l} rounds")
+    dec = bucket.decode_state(o_l, now, w)
+    step = w / BUCKET_LEVELS
+    origin = torch.floor((now - w) / step) * step
+    fin = torch.isfinite(dec)
+    if not torch.equal(dec[fin], (torch.ceil(d_f / step) * step)[fin]) or \
+            bool((d_f[~fin] > origin + 1e-4).any()):
+        fail("the legacy bucket closure is not the float closure mapped "
+             "through the level grid")
+    print(f"[legacy] {expr} (K={dfa.k}, {n_trans} transitions) over phase 4's "
+          f"final adjacency at N={n}: float closure {rounds} rounds in "
+          f"{wall:.3f} s == plain, B2 launches {out['b2_launches']}; valid_pairs "
+          f"== the engine's {int(valid.sum())} valid pairs; bucket closure "
+          f"{rounds_l} rounds in {wall_l:.3f} s == plain, B4 launches "
+          f"{out['b4_launches']}; decoded == the grid-mapped float closure",
+          flush=True)
+    return out
 
 
 if __name__ == "__main__":

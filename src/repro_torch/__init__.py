@@ -3,10 +3,13 @@ reference it is held against).
 
 Layers, as in the reference: service (``streaming.service``) -> engine
 (``core.engine``) -> executor (``core.executor``; the ELL adjacency in
-``core.sparse_adj``) -> closure rounds, dense and frontier-restricted
-(``core.semiring``) -> contraction backend (``core.contraction``) ->
-kernels B1 (``kernels.maxmin``, CUDA C++ in ``csrc/maxmin.cu``) and B5
-(``kernels.ell``, CUDA C++ in ``csrc/ell.cu``). Entry points run on the
-CUDA card unless given ``device="cpu"``. This package never imports JAX
-or ``repro``.
+``core.sparse_adj``, the row-sparse dist in ``core.sparse_dist``) ->
+closure rounds, dense and frontier-restricted, and the legacy
+single-query round (``core.semiring``) -> contraction backend
+(``core.contraction``: float kernels or the level-quantized bucket mode)
+-> kernels B1/B2 (``kernels.maxmin``, CUDA C++ in ``csrc/maxmin.cu``),
+B3/B4 (``kernels.bucket``, ``csrc/bucket.cu``), B5 (``kernels.ell``,
+``csrc/ell.cu``) and B6 (``kernels.rowsparse``, ``csrc/rowsparse.cu``).
+Entry points run on the CUDA card unless given ``device="cpu"``. This
+package never imports JAX or ``repro``.
 """

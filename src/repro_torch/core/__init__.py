@@ -6,14 +6,21 @@ adjacency, dense or row-sparse dist, frontier off, on or auto):
     RAPQ / RSPQ                    -- paper-faithful pointer engines (oracle)
     BatchedDenseRPQEngine          -- Q queries, one shared-adjacency step
     DenseRPQEngine                 -- the Q=1 view
-    resolve_backend                -- "cuda" (kernels B1/B5/B6, default) | "plain"
+    resolve_backend                -- "cuda" (kernels B1/B2/B5/B6, default) | "plain"
+                                      | "mxu_bucket" (BucketBackend: B3/B4, B5 on levels)
     carry_reference_state          -- load a JAX engine's exported state
     carry_reference_dist           -- and its row-sparse dist, leaf for leaf
 """
 from .automaton import DFA, compile_query
 from .batch import batch_rapq, batch_rspq_bruteforce, snapshot_from_edges, streaming_oracle
 from .carry import carry_reference_dist, carry_reference_state
-from .contraction import KNOWN_BACKENDS, KernelBackend, PlainBackend, resolve_backend
+from .contraction import (
+    KNOWN_BACKENDS,
+    BucketBackend,
+    KernelBackend,
+    PlainBackend,
+    resolve_backend,
+)
 from .engine import BatchedDenseRPQEngine, DenseRPQEngine, RegisteredQuery
 from .executor import Executor, LocalExecutor, QueryTables
 from .reference import RAPQ, RSPQ, SnapshotGraph
@@ -22,6 +29,7 @@ __all__ = [
     "DFA",
     "compile_query",
     "KNOWN_BACKENDS",
+    "BucketBackend",
     "KernelBackend",
     "PlainBackend",
     "resolve_backend",

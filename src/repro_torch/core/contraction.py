@@ -1,9 +1,10 @@
 """Contraction backends: the closure round's contraction as an object.
 
 The counterpart of ``repro.core.backend`` (its ``ContractionBackend``
-hooks, lines 76-262), trimmed to what the dense, ELL and row-sparse
-rounds need:
+hooks and its three backends):
 
+  * :meth:`Backend.contract` — the single-pair max-min of the legacy
+    single-query round, ``d (N, N)[x, u] x a (N, N)[u, v]``;
   * :meth:`Backend.contract_rows` — batched max-min over gathered
     transition rows, ``d_s (J, M, N)[x, u] x a_l (J, N, N)[u, v]``;
   * :meth:`Backend.contract_batched` — the dense round's gather, contract
@@ -16,22 +17,32 @@ rounds need:
     the gathered frontier rows (kernel B6 on the card), on raw float32
     timestamps with a -inf zero;
   * :meth:`Backend.prepare_state` / :meth:`Backend.decode_state` — the
-    operand representation at the dispatch boundary (identity here: both
-    backends work on float32 timestamps);
-  * :attr:`Backend.zero` (-inf) and :attr:`Backend.exact` (True).
+    operand representation at the dispatch boundary (identity for the
+    float backends, int32 levels for the bucket backend);
+  * :attr:`Backend.zero` (-inf, or level 0) and :attr:`Backend.exact`.
 
-Two backends, both bit-identical (max and min never reassociate):
+Backends compare and hash by configuration (:meth:`Backend.config_key`),
+as the reference's do: a service group takes two equally configured
+instances as one backend and refuses two that differ.
+
+Three backends:
 
 ``"plain"`` (:class:`PlainBackend`)
     The chunked plain PyTorch product — the counterpart of ``JnpBackend``.
 ``"cuda"`` (:class:`KernelBackend`, the default)
-    Kernels B1 (dense adjacency), B5 (ELL adjacency) and B6 (row-sparse
-    dist gather), written by hand for Hopper — the counterpart of
-    ``PallasBackend``. One launch per
+    Kernels B1 (dense adjacency), B5 (ELL adjacency), B6 (row-sparse
+    dist gather) and B2 (the legacy round's single pair), written by hand
+    for Hopper — the counterpart of ``PallasBackend``. One launch per
     round covers every transition row. On CPU tensors the kernels'
-    wrappers take their plain versions.
-
-``"mxu_bucket"`` (the level-quantized tensor-core mode) is not yet ported.
+    wrappers take their plain versions. Bit-identical to ``"plain"``
+    (max and min never reassociate).
+``"mxu_bucket"`` (:class:`BucketBackend`)
+    The level-quantized closure on int8 tensor cores — the counterpart
+    of the reference's ``BucketBackend``: inside a dispatch the state
+    lives as int32 levels on an absolute time grid, the contractions are
+    kernels B3 (dense round), B4 (single pair) and B5 on int32 (ELL), and
+    the result decodes to grid timestamps: a coarsened expiry, not an
+    exact one.
 """
 from __future__ import annotations
 
@@ -39,10 +50,12 @@ from typing import Dict, Optional, Union
 
 import torch
 
+from ..kernels.bucket.bucket import bucket_maxmin, bucket_maxmin_fused
+from ..kernels.bucket.ref import bucket_maxmin_fused_ref, bucket_maxmin_ref
 from ..kernels.ell.ell import ell_gather_contract
 from ..kernels.ell.ref import ell_gather_contract_ref
-from ..kernels.maxmin.maxmin import maxmin_matmul_fused
-from ..kernels.maxmin.ref import maxmin_matmul_fused_ref
+from ..kernels.maxmin.maxmin import maxmin_matmul, maxmin_matmul_fused
+from ..kernels.maxmin.ref import maxmin_matmul_fused_ref, maxmin_matmul_ref
 from ..kernels.rowsparse.ref import rowsparse_gather_ref
 from ..kernels.rowsparse.rowsparse import rowsparse_gather
 from .sparse_adj import EllAdjacency
@@ -50,28 +63,32 @@ from .sparse_adj import EllAdjacency
 NEG_INF = float("-inf")
 
 #: backend names resolve_backend accepts; the first is the default
-KNOWN_BACKENDS = ("cuda", "plain")
-#: backends of the reference package that are not ported yet, with the
-#: ROADMAP item that brings each
-NOT_PORTED = {"mxu_bucket": "ROADMAP B3"}
+KNOWN_BACKENDS = ("cuda", "plain", "mxu_bucket")
 
 
 class Backend:
     """One relaxation round's contraction substrate (see module docstring).
 
-    Instances compare and hash by name, so a service group accepts two
-    instances of one backend as the same backend."""
+    Instances compare and hash by configuration (:meth:`config_key`), so
+    a service group accepts two equally configured instances as the same
+    backend and refuses two that differ. Subclasses that add
+    configuration attributes fold them into :meth:`config_key`."""
 
     name: str = "abstract"
     exact: bool = True
     #: semiring zero in the backend's operand representation
     zero: float = NEG_INF
 
+    def config_key(self) -> tuple:
+        """Hashable full-configuration identity (type and every attribute
+        that changes what the backend computes)."""
+        return (type(self).__name__, self.name)
+
     def __eq__(self, other) -> bool:
-        return isinstance(other, Backend) and self.name == other.name
+        return isinstance(other, Backend) and self.config_key() == other.config_key()
 
     def __hash__(self) -> int:
-        return hash((type(self).__name__, self.name))
+        return hash(self.config_key())
 
     def __repr__(self) -> str:  # pragma: no cover - debugging nicety
         return f"<{type(self).__name__} {self.name!r}>"
@@ -87,6 +104,11 @@ class Backend:
         return dist
 
     # -- contraction ---------------------------------------------------------
+
+    def contract(self, d: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+        """Single-pair max-min over u: d (N, N)[x, u] x a (N, N)[u, v] ->
+        (N, N)[x, v] (the legacy single-query round)."""
+        raise NotImplementedError
 
     def contract_rows(self, d_s: torch.Tensor, a_l: torch.Tensor) -> torch.Tensor:
         """d_s (J, M, N)[x, u] x a_l (J, N, N)[u, v] -> (J, M, N)[x, v]."""
@@ -112,18 +134,19 @@ class Backend:
     #
     # The ``adj_layout="ell"`` axis: the same contractions with an
     # :class:`~repro_torch.core.sparse_adj.EllAdjacency` operand. Max and
-    # min never reassociate and free slots fold to -inf, so every variant
-    # is bit-identical to the dense hook on ``ell_to_dense(adj)``.
+    # min never reassociate and free slots fold to the zero, so every
+    # variant is bit-identical to the dense hook on ``ell_to_dense(adj)``.
 
     def _gather_contract(self, d, idx, ts) -> torch.Tensor:
-        """d (J, M, U) x ELL rows idx/ts (J, U, E) -> (J, M, U)."""
+        """d (J, M, U) x ELL rows idx/ts (J, U, E) -> (J, M, U), starting
+        from :attr:`zero`."""
         raise NotImplementedError
 
     def _fold_spill(self, contrib, d_s, ell: EllAdjacency, labs):
         """Fold the spill ring into a gather-contract result in place: for
         ring entries on transition j's label, ``contrib[j, :, dst] max=
-        min(d_s[j, :, src], spill_ts)``. Free ring entries carry -inf and
-        annihilate."""
+        min(d_s[j, :, src], spill_ts)``. Free ring entries carry
+        :attr:`zero` and annihilate."""
         j, m, _ = contrib.shape
         eff = torch.where(ell.spill_lab.long()[None, :] == labs[:, None],
                           ell.spill_ts[None, :], self.zero)          # (J, S)
@@ -166,6 +189,9 @@ class PlainBackend(Backend):
 
     name = "plain"
 
+    def contract(self, d, a):
+        return maxmin_matmul_ref(d, a)
+
     def contract_rows(self, d_s, a_l):
         return maxmin_matmul_fused_ref(d_s, a_l)
 
@@ -179,11 +205,15 @@ class PlainBackend(Backend):
 class KernelBackend(Backend):
     """Kernels B1 (``repro_torch/csrc/maxmin.cu``) and B5
     (``repro_torch/csrc/ell.cu``): one launch per round for all J
-    transition rows; and B6 (``repro_torch/csrc/rowsparse.cu``): one launch
-    per row-sparse frontier dispatch for all gathered rows. Bit-identical
-    to :class:`PlainBackend`."""
+    transition rows; B6 (``repro_torch/csrc/rowsparse.cu``): one launch
+    per row-sparse frontier dispatch for all gathered rows; and B2
+    (``maxmin.cu`` with J = 1): one launch per transition of the legacy
+    round. Bit-identical to :class:`PlainBackend`."""
 
     name = "cuda"
+
+    def contract(self, d, a):
+        return maxmin_matmul(d, a)
 
     def contract_rows(self, d_s, a_l):
         return maxmin_matmul_fused(d_s, a_l)
@@ -195,10 +225,140 @@ class KernelBackend(Backend):
         return rowsparse_gather(idx, ts, e)
 
 
+class BucketBackend(Backend):
+    """Level-quantized boolean closure on int8 tensor cores — the
+    counterpart of the reference's ``BucketBackend`` (core/backend.py:
+    275-416), operation for operation in float32 where it quantizes.
+
+    Representation: timestamps quantize onto an ABSOLUTE grid of step
+    ``w_max / n_levels``; level l decodes to ``origin + l * step`` with
+    ``origin = floor((now - w_max) / step) * step``, the window's lower
+    edge snapped down to the grid, so re-encoding an on-grid value is the
+    identity and the one-time coarsening error never accumulates. Level 0
+    is the semiring zero: -inf, and anything at or below ``origin``.
+    ``n_levels + 1`` levels are allocated so the sub-step slack between
+    ``origin`` and ``now - w_max`` never clips a live value. The grid map
+    is monotone, so it commutes with max and min: the level closure is the
+    float closure mapped through the grid, elementwise, and results are a
+    superset of the float engine's whose extras lie within one level step
+    of their query's window boundary (a coarsened expiry).
+
+    State: :meth:`prepare_state` and :meth:`decode_state` make new tensors
+    (an int32 copy of dist beside the stored float32 one, as the reference
+    does), so callers use the dist a closure returns, never the one they
+    passed in. The stored dist stays canonical float32 between dispatches.
+
+    Contraction: kernels B3 (``contract_rows``, the dense and frontier
+    rounds), B4 (``contract``, the legacy single-pair round) and B5 on
+    int32 (the ELL layout), in ``repro_torch/csrc/bucket.cu`` and
+    ``ell.cu``; the row-sparse dist's gather is B6 on raw float32, encoded
+    afterwards. ``use_kernels=False`` runs the plain versions everywhere
+    (the reference's ``use_pallas=False``); on CPU tensors the kernels'
+    wrappers take their plain versions anyway.
+    """
+
+    name = "mxu_bucket"
+    exact = False
+    zero = 0
+
+    #: floor of the snap tolerance (in level-step units) for the grid ceil
+    #: (see the reference's ``BucketBackend.GRID_EPS``): a decoded on-grid
+    #: value re-encodes through rounded float32 operations, so its ratio can
+    #: land slightly above the integer; the applied tolerance is
+    #: ``clip(8 * ulp(now) / step, GRID_EPS, 0.45)``
+    GRID_EPS: float = 1e-4
+
+    def __init__(self, n_levels: int = 8, use_kernels: bool = True):
+        if n_levels < 1:
+            raise ValueError(f"n_levels must be >= 1, got {n_levels}")
+        self.n_levels = int(n_levels)
+        self.use_kernels = bool(use_kernels)
+
+    def config_key(self) -> tuple:
+        return (type(self).__name__, self.n_levels, self.use_kernels)
+
+    # -- the absolute level grid ---------------------------------------------
+
+    def _grid(self, now, w_max):
+        """(origin, step) as float32 tensors on now's device."""
+        now_f = torch.as_tensor(now, dtype=torch.float32)
+        w = torch.clamp(torch.as_tensor(w_max, dtype=torch.float32,
+                                        device=now_f.device), min=1e-30)
+        step = w / self.n_levels
+        now_safe = torch.where(torch.isfinite(now_f), now_f, 0.0)
+        origin = torch.floor((now_safe - w) / step) * step
+        return origin, step
+
+    def encode(self, x: torch.Tensor, now=None, w_max=None) -> torch.Tensor:
+        """float32 timestamps -> int32 levels on the grid of (now, w_max)."""
+        if now is None or w_max is None:
+            raise ValueError(
+                "mxu_bucket needs the stream clock: pass now/w_max through "
+                "the closure (the executor dispatches do)")
+        origin, step = self._grid(now, w_max)
+        now_f = torch.as_tensor(now, dtype=torch.float32)
+        now_mag = torch.where(torch.isfinite(now_f), torch.abs(now_f), 0.0)
+        ulp_now = now_mag * (2.0 ** -23)
+        tol = torch.clamp(8.0 * ulp_now / step, self.GRID_EPS, 0.45)
+        # the reference's operation order, each step rounded to float32
+        lvl = x.sub(origin).div_(step).sub_(tol).ceil_()
+        lvl.clamp_(0.0, float(self.n_levels + 1))
+        lvl.masked_fill_(~(torch.isfinite(x) & (x > origin)), 0.0)
+        return lvl.to(torch.int32)
+
+    def prepare_state(self, dist, adj, now=None, w_max=None):
+        """Encode dist and the adjacency (either may be None: the
+        row-sparse path encodes each at its own boundary). An ELL
+        adjacency encodes its timestamp leaves; free slots (-inf) land on
+        level 0, the zero, so they still annihilate."""
+        if dist is not None:
+            dist = self.encode(dist, now, w_max)
+        if isinstance(adj, EllAdjacency):
+            adj = adj._replace(ts=self.encode(adj.ts, now, w_max),
+                               spill_ts=self.encode(adj.spill_ts, now, w_max))
+        elif adj is not None:
+            adj = self.encode(adj, now, w_max)
+        return dist, adj
+
+    def decode_state(self, dist, now=None, w_max=None):
+        """int32 levels -> float32 grid timestamps (level 0 -> -inf)."""
+        origin, step = self._grid(now, w_max)
+        return torch.where(dist > 0, origin + dist.to(torch.float32) * step,
+                           NEG_INF)
+
+    # -- contraction on levels -----------------------------------------------
+
+    @property
+    def t_alloc(self) -> int:
+        """Thresholds the contraction sums over: ``n_levels + 1``."""
+        return self.n_levels + 1
+
+    def contract(self, d, a):
+        if self.use_kernels:
+            return bucket_maxmin(d, a, n_levels=self.t_alloc)
+        return bucket_maxmin_ref(d, a, self.t_alloc)
+
+    def contract_rows(self, d_s, a_l):
+        if self.use_kernels:
+            return bucket_maxmin_fused(d_s, a_l, n_levels=self.t_alloc)
+        return bucket_maxmin_fused_ref(d_s, a_l, self.t_alloc)
+
+    def _gather_contract(self, d, idx, ts):
+        if self.use_kernels:
+            return ell_gather_contract(d, idx, ts)
+        return ell_gather_contract_ref(d, idx, ts, zero=self.zero)
+
+    def gather_dist_rows(self, idx, ts, e):
+        if self.use_kernels:
+            return rowsparse_gather(idx, ts, e)
+        return rowsparse_gather_ref(idx, ts, e)
+
+
 BackendLike = Union[None, str, Backend]
 
 _SINGLETONS: Dict[str, Backend] = {}
-_CLASSES = {"cuda": KernelBackend, "plain": PlainBackend}
+_CLASSES = {"cuda": KernelBackend, "plain": PlainBackend,
+            "mxu_bucket": BucketBackend}
 
 
 def resolve_backend(backend: Optional[BackendLike] = None) -> Backend:
@@ -209,10 +369,6 @@ def resolve_backend(backend: Optional[BackendLike] = None) -> Backend:
     if isinstance(backend, Backend):
         return backend
     if isinstance(backend, str):
-        if backend in NOT_PORTED:
-            raise NotImplementedError(
-                f"backend {backend!r} is not yet ported ({NOT_PORTED[backend]}); "
-                f"known backends: {', '.join(KNOWN_BACKENDS)}")
         if backend not in _CLASSES:
             raise ValueError(
                 f"unknown backend {backend!r}; known backends: "

@@ -47,7 +47,7 @@ from .executor import (
     QueryTables,
     check_options,
 )
-from .semiring import NEG_INF, BatchedTransitionTable
+from .semiring import NEG_INF, BatchedTransitionTable, TransitionTable
 
 Pair = Tuple[object, object]
 
@@ -158,7 +158,9 @@ class BatchedDenseRPQEngine:
 
     ``device=None`` runs on the CUDA card (and raises without one);
     ``backend=None`` is the kernel backend (B1 on a dense adjacency, B5 on
-    an ELL one, B6 for the row-sparse frontier gather). ``frontier``
+    an ELL one, B6 for the row-sparse frontier gather); ``"mxu_bucket"``
+    or a ``BucketBackend`` runs the level-quantized closure (B3, or B5 on
+    int32 levels, with a coarsened expiry). ``frontier``
     ("off" | "on" | "auto"), ``adj_layout`` ("dense" | "ell") and
     ``dist_layout`` ("dense" | "row_sparse", with ``dist_cap``) configure
     the default executor as in the JAX package."""
@@ -821,6 +823,9 @@ class DenseRPQEngine(BatchedDenseRPQEngine):
         self.dfa = dfa
         self.window = float(window)
         self.path_semantics = path_semantics
+        # the legacy single-query round's table (relax_round, closure,
+        # valid_pairs), on the engine's device
+        self.tt = TransitionTable.from_dfa(dfa, device=self.device)
 
     # -- Q=1 adapters --------------------------------------------------------
 

@@ -1,8 +1,10 @@
-"""(max, min) bottleneck-semiring relaxation over the product graph, for a
-batch of queries — ``repro.core.semiring`` lines 184-1012: the batched
-round and closure over a dense or an ELL adjacency, the
-frontier-restricted closure and deletion, and both over the row-sparse
-dist (:mod:`repro_torch.core.sparse_dist`).
+"""(max, min) bottleneck-semiring relaxation over the product graph —
+``repro.core.semiring`` lines 55-1012: the legacy single-query round
+(:class:`TransitionTable`, :func:`relax_round`, :func:`closure`,
+:func:`valid_pairs`), and for a batch of queries the batched round and
+closure over a dense or an ELL adjacency, the frontier-restricted closure
+and deletion, and both over the row-sparse dist
+(:mod:`repro_torch.core.sparse_dist`).
 
 ``dist[q, x, v, s]`` is the best (max over paths) bottleneck (min over
 edges) timestamp of any path x -> v whose label drives query q's DFA from
@@ -46,6 +48,129 @@ from .sparse_dist import (
 )
 
 NEG_INF = float("-inf")
+
+
+# ---------------------------------------------------------------------------
+# The legacy single-query round (reference: semiring.py:55-167)
+#
+# One query's (N, N, K) dist against its own (L, N, N) adjacency, one
+# contraction per DFA transition through the backend's ``contract`` hook
+# (kernel B2 with the "cuda" backend, B4 with the bucket backend). The
+# reference's ``fori_loop`` over transitions is a Python loop here, one
+# launch per transition; its ``while_loop`` fixpoint reads one changed
+# flag per round on the host. Operands are in the backend's
+# representation: callers of the bucket backend encode themselves.
+# ---------------------------------------------------------------------------
+
+
+class TransitionTable(NamedTuple):
+    """Static DFA transition arrays (built once at query registration), on
+    the query's device."""
+
+    src: torch.Tensor         # (J,) int64 source state of each transition
+    lab: torch.Tensor         # (J,) int64 label index
+    dst: torch.Tensor         # (J,) int64 destination state
+    dst_onehot: torch.Tensor  # (J, K) float32 one-hot of dst
+    start_mask: torch.Tensor  # (J,) bool: src == s0
+    k: int
+    n_labels: int
+
+    @staticmethod
+    def from_dfa(dfa, device: DeviceLike = None) -> "TransitionTable":
+        """The DFA's transitions in its own order; an empty language gets
+        one inert row (0, 0, 0) that never fires (no start mask, an
+        all-zero one-hot), as in the reference."""
+        dev = resolve_device(device)
+
+        def t(x, dtype=torch.int64):
+            return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+        trans = dfa.transitions()
+        if not trans:
+            return TransitionTable(
+                t([0]), t([0]), t([0]),
+                t(np.zeros((1, max(dfa.k, 1)), np.float32), torch.float32),
+                t([False], torch.bool), max(dfa.k, 1), max(dfa.n_labels, 1))
+        src = np.array([s for (s, _l, _t) in trans], np.int64)
+        dst = np.array([d for (_s, _l, d) in trans], np.int64)
+        oh = np.zeros((len(trans), dfa.k), np.float32)
+        oh[np.arange(len(trans)), dst] = 1.0
+        return TransitionTable(
+            src=t(src), lab=t([lab for (_s, lab, _t) in trans]), dst=t(dst),
+            dst_onehot=t(oh, torch.float32),
+            start_mask=t(src == dfa.start, torch.bool),
+            k=dfa.k, n_labels=dfa.n_labels)
+
+
+def relax_round(
+    dist: torch.Tensor,          # (N, N, K) in the backend's representation
+    adj: torch.Tensor,           # (L, N, N)
+    tt: TransitionTable,
+    backend: BackendLike = None,
+) -> torch.Tensor:
+    """One relaxation round; returns a new tensor, the pointwise max of
+    dist and every transition's contribution (each contraction reads the
+    round's input ``dist``, as the reference's loop does). One
+    ``backend.contract`` call per transition; no host sync."""
+    backend = resolve_backend(backend)
+    n = dist.shape[0]
+    out = dist.clone()
+    for j in range(tt.src.shape[0]):
+        dist_s = dist.index_select(2, tt.src[j:j + 1]).view(n, n)    # [x, u]
+        adj_l = adj.index_select(0, tt.lab[j:j + 1]).view(n, n)     # [u, v]
+        contrib = backend.contract(dist_s, adj_l)                    # [x, v]
+        # base term: seed (x, x, s0) = +inf => min(+inf, adj[l, x, v]) = adj
+        contrib = torch.where(tt.start_mask[j], torch.maximum(contrib, adj_l),
+                              contrib)
+        # max into the destination state's slice through the one-hot row
+        # (the empty language's all-zero row writes nothing)
+        upd = torch.where(tt.dst_onehot[j][None, None, :] > 0,
+                          contrib[:, :, None], backend.zero)
+        torch.maximum(out, upd, out=out)
+    return out
+
+
+def closure(
+    dist: torch.Tensor,
+    adj: torch.Tensor,
+    tt: TransitionTable,
+    backend: BackendLike = None,
+    max_rounds: int = 0,
+) -> Tuple[torch.Tensor, int]:
+    """Iterate :func:`relax_round` to the fixpoint. Returns ``(dist,
+    rounds)`` as the reference does (``rounds`` a Python int here).
+    ``max_rounds=0`` bounds the loop by N*K + 1 rounds."""
+    dist, rounds, _syncs = _single_closure(dist, adj, tt, backend, max_rounds)
+    return dist, rounds
+
+
+def _single_closure(dist, adj, tt, backend, max_rounds):
+    """:func:`closure` plus the host-sync count: the reference's loop runs
+    a first round, then rounds while the last one changed something; the
+    host reads ``any(nd > d)`` once per later round."""
+    backend = resolve_backend(backend)
+    n, _, k = dist.shape
+    bound = max_rounds if max_rounds > 0 else n * k + 1
+    d = relax_round(dist, adj, tt, backend)
+    rounds, syncs = 1, 0
+    while rounds < bound:
+        nd = relax_round(d, adj, tt, backend)
+        rounds += 1
+        changed = bool((nd > d).any())
+        syncs += 1
+        d = nd
+        if not changed:
+            break
+    return d, rounds, syncs
+
+
+def valid_pairs(dist: torch.Tensor, finals: torch.Tensor,
+                low) -> torch.Tensor:
+    """(N, N) bool: pair (x, v) has an accepting path inside the window,
+    i.e. the max over final states of dist is above ``low`` (strict).
+    ``finals`` is a (K,) bool mask."""
+    best = dist.masked_fill(~finals[None, None, :], NEG_INF).amax(dim=2)
+    return best > low
 
 
 class BatchedTransitionTable(NamedTuple):
@@ -136,7 +261,7 @@ def _round_update(dist: torch.Tensor, adj: torch.Tensor,
         contrib = backend.contract_batched_ell(dist, adj, btt, active)
         if s.numel():
             _fold_base_ell(contrib, adj, s, btt.lab.index_select(0, s),
-                           active.index_select(0, s))
+                           active.index_select(0, s), backend.zero)
     else:
         contrib = backend.contract_batched(dist, adj, btt, active)  # (J, N, N)
         if s.numel():
@@ -146,34 +271,41 @@ def _round_update(dist: torch.Tensor, adj: torch.Tensor,
                               torch.maximum(sub, base), sub)
             contrib.index_copy_(0, s, sub)
             del sub, base
-    # segment max over qidx * K + dst; empty segments stay -inf, the
-    # semiring zero (jax.ops.segment_max fills the dtype minimum, which
-    # is -inf for floats: the same values)
+    # segment max over qidx * K + dst; empty segments hold the dtype
+    # minimum, as jax.ops.segment_max fills them (-inf for floats, below
+    # every level for the bucket backend's int32)
     seg = btt.qidx * k + btt.dst
-    scat = torch.full((q * k, n, n), NEG_INF, dtype=dist.dtype,
+    scat = torch.full((q * k, n, n), _dtype_min(dist.dtype), dtype=dist.dtype,
                       device=dist.device)
     scat.index_reduce_(0, seg, contrib, "amax", include_self=True)
     return scat.view(q, k, n, n).permute(0, 2, 3, 1)
 
 
+def _dtype_min(dtype: torch.dtype):
+    """The smallest value of ``dtype`` (-inf for floats), the fill of
+    ``jax.ops.segment_max``'s empty segments."""
+    return NEG_INF if dtype.is_floating_point else torch.iinfo(dtype).min
+
+
 def _fold_base_ell(contrib: torch.Tensor, ell: EllAdjacency,
                    rows: torch.Tensor, labs: torch.Tensor,
-                   active: torch.Tensor) -> None:
+                   active: torch.Tensor, zero) -> None:
     """``contrib[rows[i]] max= dense(ell)[labs[i]]`` for the active rows,
     in place, straight off the ELL slots and the ring: the same values as
     the reference's densified ``ell_label_rows`` folded with max, without
-    materializing a (J, N, N) slab."""
+    materializing a (J, N, N) slab. Inactive rows fold the backend's
+    ``zero``, which changes nothing."""
     _j, n, _ = contrib.shape
     dev = contrib.device
     flat_out = contrib.view(-1)
     x = torch.arange(n, device=dev)
-    ts = torch.where(active[:, None, None], ell.ts[labs], NEG_INF)  # (S, N, E)
+    ts = torch.where(active[:, None, None], ell.ts[labs], zero)     # (S, N, E)
     flat = ((rows[:, None, None] * n + x[None, :, None]) * n
             + ell.idx[labs].long())
     flat_out.scatter_reduce_(0, flat.reshape(-1), ts.reshape(-1), "amax",
                              include_self=True)
     hit = (ell.spill_lab.long()[None, :] == labs[:, None]) & active[:, None]
-    ring = torch.where(hit, ell.spill_ts[None, :], NEG_INF)          # (S, R)
+    ring = torch.where(hit, ell.spill_ts[None, :], zero)             # (S, R)
     flat = ((rows[:, None] * n + ell.spill_src.long()[None, :]) * n
             + ell.spill_dst.long()[None, :])
     flat_out.scatter_reduce_(0, flat.reshape(-1), ring.reshape(-1), "amax",
@@ -431,7 +563,7 @@ def _frontier_slab_round(
     act = btt.active[:, None] & rowmask[btt.qidx]            # (J, F)
     contrib = contrib.masked_fill_(~act[:, :, None], backend.zero)
     seg = btt.qidx * k + btt.dst
-    scat = torch.full((q * k, f, n), NEG_INF, dtype=slab.dtype,
+    scat = torch.full((q * k, f, n), _dtype_min(slab.dtype), dtype=slab.dtype,
                       device=slab.device)
     scat.index_reduce_(0, seg, contrib, "amax", include_self=True)
     upd = scat.view(q, k, f, n).permute(0, 2, 3, 1)          # (Q, F, N, K)

@@ -6,7 +6,10 @@
 // d (J, M, U) float32, idx (J, U, E) int32, ts (J, U, E) float32, out
 // (J, M, U) float32, all row-major and contiguous. -inf is the semiring
 // zero: the wrapper fills `out` with -inf before the launch, free ELL slots
-// carry ts == -inf, and a -inf candidate is never written.
+// carry ts == -inf, and a -inf candidate is never written. A second entry,
+// `ell_gather_contract_s32`, runs the same kernel on the bucket backend's
+// int32 levels (d, ts and out int32), whose zero is level 0: the wrapper
+// fills 0, free slots carry level 0, the fold is a plain integer atomicMax.
 //
 // Replaces `_ell_kernel` / `ell_gather_contract_fused`
 // (repro/kernels/ell/ell.py:39-97), the Pallas TPU kernel that contracts a
@@ -42,10 +45,16 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxGridY = 65535;
 
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+// The semiring zero of each lattice: -inf on float32 timestamps, level 0
+// on the bucket backend's int32 levels.
+__device__ __forceinline__ float zero_of(float) { return __int_as_float(0xff800000); }
+__device__ __forceinline__ int zero_of(int) { return 0; }
+
+__device__ __forceinline__ float min_of(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ int min_of(int a, int b) { return min(a, b); }
 
 // Exact float32 max into *addr (no NaN): see the header comment.
-__device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
+__device__ __forceinline__ void atomic_max_to(float* addr, float v) {
   const int bits = __float_as_int(v);
   if (bits >= 0) {
     atomicMax(reinterpret_cast<int*>(addr), bits);
@@ -54,28 +63,45 @@ __device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
   }
 }
 
+__device__ __forceinline__ void atomic_max_to(int* addr, int v) { atomicMax(addr, v); }
+
 // grid.x covers U in blocks of kThreads; grid.y strides over the J * M
-// rows of d and out.
+// rows of d and out. A candidate at or below the zero cannot raise an
+// output the wrapper filled with the zero, so it is skipped.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-ell_gather_contract_kernel(const float* __restrict__ d, const int* __restrict__ idx,
-                           const float* __restrict__ ts, float* __restrict__ out,
+ell_gather_contract_kernel(const T* __restrict__ d, const int* __restrict__ idx,
+                           const T* __restrict__ ts, T* __restrict__ out,
                            int J, int M, int U, int E) {
   const int u = blockIdx.x * kThreads + threadIdx.x;
   if (u >= U) return;
+  const T zero = zero_of(T());
   const int64_t rows = (int64_t)J * M;
   for (int64_t jm = blockIdx.y; jm < rows; jm += gridDim.y) {
-    const float dv = __ldg(d + jm * U + u);
-    if (dv == neg_inf()) continue;
+    const T dv = __ldg(d + jm * U + u);
+    if (dv <= zero) continue;
     const int64_t slot0 = ((jm / M) * U + u) * (int64_t)E;
-    float* out_row = out + jm * U;
+    T* out_row = out + jm * U;
     for (int e = 0; e < E; ++e) {
-      const float c = fminf(dv, __ldg(ts + slot0 + e));
-      if (c == neg_inf()) continue;
+      const T c = min_of(dv, __ldg(ts + slot0 + e));
+      if (c <= zero) continue;
       const int v = __ldg(idx + slot0 + e);
       if (v < 0 || v >= U) continue;  // out of range: dropped, as JAX's scatter
-      atomic_max_f32(out_row + v, c);
+      atomic_max_to(out_row + v, c);
     }
   }
+}
+
+template <typename T>
+int launch(const T* d, const int* idx, const T* ts, T* out, int J, int M, int U, int E,
+           void* stream) {
+  if (J < 1 || M < 1 || U < 1 || E < 1) return (int)cudaErrorInvalidValue;
+  const int64_t rows = (int64_t)J * M;
+  const dim3 grid((U + kThreads - 1) / kThreads,
+                  (unsigned)(rows < kMaxGridY ? rows : kMaxGridY));
+  ell_gather_contract_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      d, idx, ts, out, J, M, U, E);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -83,11 +109,11 @@ ell_gather_contract_kernel(const float* __restrict__ d, const int* __restrict__ 
 extern "C" int ell_gather_contract_f32(const float* d, const int* idx, const float* ts,
                                        float* out, int J, int M, int U, int E,
                                        void* stream) {
-  if (J < 1 || M < 1 || U < 1 || E < 1) return (int)cudaErrorInvalidValue;
-  const int64_t rows = (int64_t)J * M;
-  const dim3 grid((U + kThreads - 1) / kThreads,
-                  (unsigned)(rows < kMaxGridY ? rows : kMaxGridY));
-  ell_gather_contract_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      d, idx, ts, out, J, M, U, E);
-  return (int)cudaGetLastError();
+  return launch<float>(d, idx, ts, out, J, M, U, E, stream);
+}
+
+// The bucket backend's int32 levels (zero 0): plain integer atomicMax.
+extern "C" int ell_gather_contract_s32(const int* d, const int* idx, const int* ts,
+                                       int* out, int J, int M, int U, int E, void* stream) {
+  return launch<int>(d, idx, ts, out, J, M, U, E, stream);
 }

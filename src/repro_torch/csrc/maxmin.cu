@@ -9,7 +9,11 @@
 //
 // Replaces `_maxmin_fused_kernel` (repro/kernels/maxmin/maxmin.py:138),
 // the Pallas TPU kernel behind `maxmin_matmul_fused`, which the dense
-// closure round calls once for all J transition rows.
+// closure round calls once for all J transition rows (kernel B1), and
+// `_maxmin_kernel` (maxmin.py:67), behind the single-pair `maxmin_matmul`
+// that the legacy single-query round calls once per transition (kernel
+// B2: the same kernel launched with J = 1 through its own entries,
+// `maxmin_f32` and `maxmin_f16`).
 //
 // What bounds it: no tensor-core instruction computes max-min, so the
 // product runs on the CUDA cores as one FMNMX for the min and one for the
@@ -164,4 +168,15 @@ extern "C" int maxmin_fused_f32(const float* a, const float* b, float* out, int 
 extern "C" int maxmin_fused_f16(const __half* a, const __half* b, __half* out, int J,
                                 int m, int k, int n, int bm, void* stream) {
   return dispatch<__half>(a, b, out, J, m, k, n, bm, stream);
+}
+
+// B2: the single-pair product (J = 1)
+extern "C" int maxmin_f32(const float* a, const float* b, float* out, int m, int k, int n,
+                          int bm, void* stream) {
+  return dispatch<float>(a, b, out, 1, m, k, n, bm, stream);
+}
+
+extern "C" int maxmin_f16(const __half* a, const __half* b, __half* out, int m, int k,
+                          int n, int bm, void* stream) {
+  return dispatch<__half>(a, b, out, 1, m, k, n, bm, stream);
 }

@@ -1,1 +1,2 @@
-"""Kernel B1: the batched (max, min) product and its plain version."""
+"""Kernels B1 and B2: the (max, min) product, batched and single-pair, and
+their plain versions."""

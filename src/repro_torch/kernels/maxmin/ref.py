@@ -48,6 +48,14 @@ def maxmin_matmul_fused_ref(a: torch.Tensor, b: torch.Tensor, *,
     return out
 
 
+def maxmin_matmul_ref(a: torch.Tensor, b: torch.Tensor, *,
+                      chunk: int = 128) -> torch.Tensor:
+    """Single-pair (max, min) product a (m, k) x b (k, n) -> (m, n), the
+    counterpart of ``repro.kernels.maxmin.ref.maxmin_matmul_ref`` (the
+    J = 1 case of :func:`maxmin_matmul_fused_ref`)."""
+    return maxmin_matmul_fused_ref(a[None], b[None], chunk=chunk)[0]
+
+
 def maxmin_matmul_naive(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Unchunked one-liner over the leading batch dims (test sizes only)."""
     return torch.amax(torch.minimum(a[..., :, :, None], b[..., None, :, :]),

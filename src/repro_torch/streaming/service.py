@@ -12,7 +12,9 @@ Every query registered with ``engine="dense"`` folds into ONE
 :class:`~repro_torch.core.engine.BatchedDenseRPQEngine` on the CUDA card
 (``device=None``), whose closure rounds run kernel B1 (dense adjacency) or
 kernel B5 (``adj_layout="ell"``), and whose row-sparse frontier dispatches
-gather their rows with kernel B6 (``dist_layout="row_sparse"``); reference
+gather their rows with kernel B6 (``dist_layout="row_sparse"``); with
+``backend="mxu_bucket"`` the rounds run on int32 levels (kernel B3, or B5
+on levels with the ELL adjacency); reference
 engines (the paper-faithful pointer oracles) stay on the per-query host
 path.
 
@@ -276,7 +278,10 @@ class PersistentQueryService:
         """Register a persistent query, before or after ingestion has
         started. A dense registration into a live group seeds the query
         over the retained graph and returns its initial result pairs; all
-        other paths return an empty set. ``backend=None`` is kernel B1."""
+        other paths return an empty set. ``backend=None`` is kernel B1;
+        ``"mxu_bucket"`` or a ``BucketBackend`` instance runs the
+        level-quantized closure. The dense queries of one service share one
+        backend configuration (backends compare by ``config_key``)."""
         if name in self.stats and (name in self._dense_specs
                                    or name in self._ref_engines):
             raise ValueError(f"query {name!r} already registered")

@@ -1,7 +1,8 @@
 """Shared helpers of the port-vs-JAX engine tests
 (tests/test_torch_frontier.py, tests/test_torch_ell_engine.py,
-tests/test_torch_rowsparse_engine.py): a pair of engines built alike, the
-per-event drive and the end-state comparison."""
+tests/test_torch_rowsparse_engine.py, tests/test_torch_bucket_engine.py):
+a pair of engines built alike, the per-event drive and the end-state
+comparison."""
 import numpy as np
 import pytest
 import torch
@@ -39,20 +40,22 @@ def one_torch_thread():
 
 
 def engine_pair(queries, frontier, layout, window=20.0, n_slots=8, batch_size=1,
-                **executor_kw):
-    """A JAX engine (``backend="jnp"``) and a port engine (CPU), each with
-    an explicit executor: ``frontier_cap=4``, ``ell_cap=2`` and an 8-entry
-    spill ring, so fallbacks, growth, spills, drains and re-packs fire;
-    ``executor_kw`` adds or overrides executor options (the dist layout)."""
+                backends=("jnp", None), **executor_kw):
+    """A JAX engine and a port engine (CPU), each with an explicit
+    executor: ``frontier_cap=4``, ``ell_cap=2`` and an 8-entry spill ring,
+    so fallbacks, growth, spills, drains and re-packs fire;
+    ``executor_kw`` adds or overrides executor options (the dist layout).
+    ``backends`` are the JAX and the port backends (default ``"jnp"`` and
+    the port's kernel backend)."""
     kw = {**dict(frontier=frontier, frontier_cap=4, adj_layout=layout,
                  ell_cap=2, spill_cap=8), **executor_kw}
     je = JaxEngine([JaxQuery(n, jax_compile(e), window, s) for n, e, s in queries],
                    n_slots=n_slots, batch_size=batch_size,
-                   executor=JaxLocal("jnp", **kw))
+                   executor=JaxLocal(backends[0], **kw))
     te = BatchedDenseRPQEngine(
         [RegisteredQuery(n, compile_query(e), window, s) for n, e, s in queries],
         n_slots=n_slots, batch_size=batch_size,
-        executor=LocalExecutor(None, device="cpu", **kw))
+        executor=LocalExecutor(backends[1], device="cpu", **kw))
     return je, te
 
 
@@ -64,8 +67,12 @@ def step(eng, sgt):
 
 
 def assert_dist_leaves_equal(je, te, tag=None):
-    """The row-sparse dist leaves of both engines, leaf for leaf."""
+    """The stored dist of both engines: the dense tensor, or the row-sparse
+    dist leaf for leaf."""
     td, jd = te.executor.arrays.dist, je.executor.arrays.dist
+    if isinstance(td, torch.Tensor):
+        np.testing.assert_array_equal(td.numpy(), np.asarray(jd), err_msg=str(tag))
+        return
     for name, a, b in zip(td._fields, td, jd):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b),
                                       err_msg=f"{name} {tag}")
@@ -75,7 +82,7 @@ def drive(je, te, tuples, slide=2.0, stats_every=1, next_expiry=None,
           leaves=False):
     """Feed both engines the same sgts with slide-boundary expiry; assert
     per event the results, conflict flags, adjacency and dist telemetry
-    (and with ``leaves`` the row-sparse dist leaves), and every
+    (and with ``leaves`` the stored dist, leaf for leaf), and every
     ``stats_every`` events the frontier telemetry (reading it flushes the
     queued counters; 0 leaves the cadence alone). Returns the next expiry
     time."""

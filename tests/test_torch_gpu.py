@@ -1,6 +1,8 @@
-"""Tests that need the CUDA card: kernels B1, B5 and B6 against their plain
-versions on the card, and the port's engine on the card against itself on
-the CPU (dense and row-sparse dist).
+"""Tests that need the CUDA card: kernels B1-B6 against their plain
+versions on the card (B5 on float32 timestamps and on int32 levels), and
+the port's engine on the card against itself on the CPU (dense and
+row-sparse dist, the float and the bucket backend, and the legacy
+single-query closure).
 
 Marked ``gpu``; each skips (from the ``cuda`` fixture, never at import or
 collection) where there is no card. On the card:
@@ -13,12 +15,15 @@ import torch
 
 from repro_torch.core.automaton import compile_query
 from repro_torch.core.engine import BatchedDenseRPQEngine, RegisteredQuery
-from repro_torch.core.contraction import resolve_backend
+from repro_torch.core.contraction import BucketBackend, resolve_backend
+from repro_torch.core.semiring import TransitionTable, closure
 from repro_torch.core.sparse_adj import ell_insert, pack_ell_dense
+from repro_torch.kernels.bucket import bucket as b3
+from repro_torch.kernels.bucket.ref import bucket_maxmin_fused_ref, bucket_maxmin_ref
 from repro_torch.kernels.ell import ell as b5
 from repro_torch.kernels.ell.ref import ell_gather_contract_ref
 from repro_torch.kernels.maxmin import maxmin as b1
-from repro_torch.kernels.maxmin.ref import maxmin_matmul_fused_ref
+from repro_torch.kernels.maxmin.ref import maxmin_matmul_fused_ref, maxmin_matmul_ref
 from repro_torch.kernels.rowsparse import rowsparse as b6
 from repro_torch.kernels.rowsparse.ref import rowsparse_gather_ref
 from repro_torch.streaming.generators import so_like, with_deletions
@@ -278,3 +283,145 @@ def test_row_sparse_engine_on_card_equals_engine_on_cpu(cuda):
             b5.ell_gather_contract.launches - launches[1],
             b6.rowsparse_gather.launches - launches[2])
     assert runs == (0, gpu.total_rounds, inserts_kept)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float16])
+@pytest.mark.parametrize("J,m,k,n", [c for c in CASES if c[0] == 1])
+def test_b2_kernel_equals_plain_version(cuda, J, m, k, n, dtype):
+    rng = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(_rand_ts(rng, (m, k), dtype)).to(cuda)
+    b = torch.from_numpy(_rand_ts(rng, (k, n), dtype)).to(cuda)
+    before = (b1.maxmin_matmul.launches, b1.maxmin_matmul_fused.launches)
+    out = b1.maxmin_matmul(a, b)
+    torch.cuda.synchronize()
+    assert (b1.maxmin_matmul.launches, b1.maxmin_matmul_fused.launches) == \
+        (before[0] + 1, before[1])
+    assert torch.equal(out, maxmin_matmul_ref(a, b))
+
+
+# tests/test_kernels.py: BUCKET_SHAPES (m, k, n, T), plus odd shapes (m=1,
+# k or n off the 64 tile and not a multiple of 8, T=1, T past n_levels + 1
+# of the defaults) and batched J
+BUCKET_CASES = [(1, 16, 16, 16, 4), (1, 128, 128, 128, 8), (1, 70, 200, 90, 3),
+                (1, 1, 130, 257, 6), (1, 1, 7, 5, 1), (3, 33, 70, 9, 9),
+                (3, 4, 2048, 100, 9), (5, 65, 129, 63, 20), (2, 100, 1, 3, 9)]
+
+
+def _levels(rng, shape, t):
+    """Levels in [0, T + 2] (above T counts T), about half of them 0."""
+    x = rng.integers(0, t + 3, shape).astype(np.int32)
+    x[rng.random(shape) < 0.5] = 0
+    return x
+
+
+@pytest.mark.parametrize("J,m,k,n,T", BUCKET_CASES)
+def test_b3_b4_kernels_equal_plain_versions(cuda, J, m, k, n, T):
+    rng = np.random.default_rng(J * 1000 + m + k + n + T)
+    a = torch.from_numpy(_levels(rng, (J, m, k), T)).to(cuda)
+    b = torch.from_numpy(_levels(rng, (J, k, n), T)).to(cuda)
+    a[:, : max(1, m // 5)] = 0                   # all-zero rows
+    before = (b3.bucket_maxmin_fused.launches, b3.bucket_maxmin.launches)
+    out = b3.bucket_maxmin_fused(a, b, n_levels=T)
+    pair = b3.bucket_maxmin(a[0].contiguous(), b[0].contiguous(), n_levels=T)
+    torch.cuda.synchronize()
+    assert (b3.bucket_maxmin_fused.launches, b3.bucket_maxmin.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(out, bucket_maxmin_fused_ref(a, b, T))
+    assert torch.equal(pair, bucket_maxmin_ref(a[0], b[0], T))
+
+
+def test_bucket_kernels_refuse_bad_operands(cuda):
+    a = torch.zeros((2, 8, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        b3.bucket_maxmin_fused(a.float(), a.float(), n_levels=9)
+    with pytest.raises(ValueError, match="contiguous"):
+        b3.bucket_maxmin_fused(a.transpose(1, 2), a, n_levels=9)
+    with pytest.raises(ValueError, match="n_levels"):
+        b3.bucket_maxmin(a[0], a[0], n_levels=128)
+
+
+@pytest.mark.parametrize("J,M,U,E", B5_CASES)
+def test_b5_int32_entry_equals_plain_version(cuda, J, M, U, E):
+    rng = np.random.default_rng(J * 1000 + M + U + E + 1)
+    d, idx, ts = _ell_operands(rng, J, M, U, E, cuda)
+    d, ts = (torch.where(x > float("-inf"), x / 100.0 + 1.0, 0.0).to(torch.int32)
+             for x in (d, ts))                   # levels 1..10, free slots 0
+    before = b5.ell_gather_contract.launches
+    out = b5.ell_gather_contract(d, idx, ts)
+    torch.cuda.synchronize()
+    assert b5.ell_gather_contract.launches == before + 1
+    assert out.dtype == torch.int32
+    assert torch.equal(out, ell_gather_contract_ref(d, idx, ts, zero=0))
+    with pytest.raises(TypeError):
+        b5.ell_gather_contract(d, idx, ts.float())   # one element type
+
+
+@pytest.mark.parametrize("layout", [dict(), dict(frontier="auto", frontier_cap=2),
+                                    dict(frontier="auto", frontier_cap=2,
+                                         adj_layout="ell", ell_cap=2),
+                                    dict(frontier="auto", frontier_cap=2,
+                                         adj_layout="ell", ell_cap=2,
+                                         dist_layout="row_sparse", dist_cap=2)])
+def test_bucket_engine_on_card_equals_engine_on_cpu(cuda, layout):
+    """The bucket backend on the card (B3, or B5 on int32 with the ELL
+    adjacency, and B6's raw float32 gather with the row-sparse dist)
+    equals its plain versions on the CPU per event and in the stored
+    float32 dist."""
+    queries = [("q1", "a2q . c2a*", "arbitrary"),
+               ("q2", "(a2q | c2a | c2q)+", "arbitrary")]
+
+    def engine(device):
+        return BatchedDenseRPQEngine(
+            [RegisteredQuery(n, compile_query(e), 20.0, s) for n, e, s in queries],
+            n_slots=16, batch_size=1, backend=BucketBackend(8), device=device,
+            **layout)
+
+    gpu, cpu = engine(cuda), engine("cpu")
+    stream = with_deletions(so_like(n_vertices=24, n_edges=120, seed=4),
+                            ratio=0.05, seed=2)
+    launches = (b3.bucket_maxmin_fused.launches, b5.ell_gather_contract.launches,
+                b1.maxmin_matmul_fused.launches)
+    nxt = 2.0
+    for sgt in stream:
+        if sgt.ts >= nxt:
+            gpu.expire(sgt.ts)
+            cpu.expire(sgt.ts)
+            while nxt <= sgt.ts:
+                nxt += 2.0
+        if sgt.op == "+":
+            assert gpu.insert(*sgt.as_edge()) == cpu.insert(*sgt.as_edge())
+        else:
+            assert gpu.delete(*sgt.as_edge()) == cpu.delete(*sgt.as_edge())
+    assert torch.equal(gpu.executor.dense_dist().cpu(), cpu.executor.dense_dist())
+    runs = (b3.bucket_maxmin_fused.launches - launches[0],
+            b5.ell_gather_contract.launches - launches[1],
+            b1.maxmin_matmul_fused.launches - launches[2])
+    ell = layout.get("adj_layout") == "ell"
+    assert runs == ((0, gpu.total_rounds, 0) if ell else (gpu.total_rounds, 0, 0))
+
+
+def test_legacy_closure_on_card_equals_plain(cuda):
+    """The legacy single-query closure: the "cuda" backend (B2) equals
+    "plain" and the bucket backend (B4) its plain versions, on the card;
+    one launch per transition per round."""
+    rng = np.random.default_rng(3)
+    dfa = compile_query("a . b* . c")
+    tt = TransitionTable.from_dfa(dfa, device=cuda)
+    n = 130
+    adj = torch.from_numpy(_rand_ts(rng, (dfa.n_labels, n, n), np.float32)).to(cuda)
+    adj[adj < 900.0] = float("-inf")             # a sparse graph: several rounds
+    dist = torch.full((n, n, dfa.k), float("-inf"), device=cuda)
+    n_trans = tt.src.shape[0]
+    before = b1.maxmin_matmul.launches
+    out, rounds = closure(dist, adj, tt, "cuda")
+    torch.cuda.synchronize()
+    assert b1.maxmin_matmul.launches - before == n_trans * rounds
+    assert torch.equal(out, closure(dist, adj, tt, "plain")[0])
+    bucket = BucketBackend(8)
+    now, w = torch.tensor(1000.0, device=cuda), torch.tensor(120.0, device=cuda)
+    d_l, a_l = bucket.prepare_state(dist, adj, now, w)
+    before = b3.bucket_maxmin.launches
+    out_l, rounds_l = closure(d_l, a_l, tt, bucket)
+    torch.cuda.synchronize()
+    assert b3.bucket_maxmin.launches - before == n_trans * rounds_l
+    assert torch.equal(out_l, closure(d_l, a_l, tt, BucketBackend(8, use_kernels=False))[0])

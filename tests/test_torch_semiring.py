@@ -107,7 +107,16 @@ def test_backends_agree_and_resolve():
     assert isinstance(resolve_backend("plain"), PlainBackend)
     assert resolve_backend("cuda") is resolve_backend(None)
     assert KNOWN_BACKENDS[0] == "cuda"
-    with pytest.raises(NotImplementedError, match="ROADMAP B3"):
-        resolve_backend("mxu_bucket")
+    # the bucket backend is ported: a closure on levels, decoded, equals
+    # the float closure mapped through the grid
+    bucket = resolve_backend("mxu_bucket")
+    assert bucket.name == "mxu_bucket" and bucket.zero == 0
+    now, w = torch.tensor(100.0), torch.tensor(80.0)
+    c, *_ = tsr.batched_closure(torch.from_numpy(dist.copy()),
+                                torch.from_numpy(adj), tbtt, bucket, now=now,
+                                w_max=w)
+    step = w / bucket.n_levels
+    fin = torch.isfinite(c)
+    assert torch.equal(c[fin], (torch.ceil(a / step) * step)[fin])
     with pytest.raises(ValueError, match="known backends"):
         resolve_backend("palas")

@@ -3,15 +3,18 @@ scenario of examples/streaming_service.py (mixed dense/reference engines,
 both path semantics, 2% explicit deletions, two ingest calls) scaled down
 and without the snapshot, compared report for report. Also: the RSPQ
 fallback, the async-decode FIFO, adaptive batching, the frontier and ELL
-options with their telemetry logs, the options not yet ported, and that
-importing the port loads neither JAX nor ``repro``."""
+options with their telemetry logs, the bucket backend, the options not
+yet ported, and that importing the port loads neither JAX nor
+``repro``."""
 import subprocess
 import sys
 from pathlib import Path
 
 import pytest
 
+from repro.core.backend import BucketBackend as JaxBucket
 from repro.streaming.service import PersistentQueryService as JaxService
+from repro_torch.core.contraction import BucketBackend
 from repro_torch.streaming.generators import so_like, with_deletions
 from repro_torch.streaming.service import PersistentQueryService
 from repro_torch.streaming.stream import Stream
@@ -27,12 +30,16 @@ REGS = [  # (name, expr, engine, path_semantics)
 ]
 
 
-def _services(**kw):
+def _services(backends=(None, None), **kw):
+    """A JAX and a port service with REGS registered; ``backends`` are the
+    dense queries' backends (default: each package's default)."""
     js = JaxService(window=20.0, slide=2.0, **kw)
     ts = PersistentQueryService(window=20.0, slide=2.0, device="cpu", **kw)
+    jb = {} if backends[0] is None else {"backend": backends[0]}
+    tb = {} if backends[1] is None else {"backend": backends[1]}
     for name, expr, engine, sem in REGS:
-        js.register(name, expr, engine=engine, path_semantics=sem, n_slots=24)
-        ts.register(name, expr, engine=engine, path_semantics=sem, n_slots=24)
+        js.register(name, expr, engine=engine, path_semantics=sem, n_slots=24, **jb)
+        ts.register(name, expr, engine=engine, path_semantics=sem, n_slots=24, **tb)
     return js, ts
 
 
@@ -98,8 +105,10 @@ def test_unported_paths_raise():
         svc.snapshot("unused", step=0)
     with pytest.raises(NotImplementedError, match="A10"):
         svc.restore("unused")
-    with pytest.raises(NotImplementedError, match="B3"):
-        svc.register("q", "a*", backend="mxu_bucket")
+    # the bucket backend is ported: by name and as an instance
+    svc.register("q", "a*", backend="mxu_bucket")
+    svc.register("r", "b*", backend=BucketBackend(8))
+    assert svc.queries["q"].backend == BucketBackend(8)
 
 
 @pytest.mark.parametrize("adj_layout", ["ell", "dense"])
@@ -126,12 +135,30 @@ def test_frontier_service_report_for_report(adj_layout):
     assert st["fallbacks"] >= 1 and st["cap"] > 2 and st["delete_dispatches"] >= 1
 
 
+@pytest.mark.parametrize("kw", [{}, {"frontier": "auto", "frontier_cap": 2,
+                                   "adj_layout": "ell", "ell_cap": 2}])
+def test_bucket_service_report_for_report(kw):
+    """A service whose dense group runs the bucket backend against the JAX
+    service with the reference's bucket backend: reports (new pairs,
+    invalidations, fallbacks, deletions), results and stats equal."""
+    js, ts = _services(backends=(JaxBucket(8, use_pallas=False), "mxu_bucket"),
+                       **kw)
+    tuples = list(with_deletions(so_like(n_vertices=24, n_edges=100, seed=5),
+                                 ratio=0.04, seed=2))
+    for part in (tuples[:50], tuples[50:]):
+        _assert_reports_equal(js.ingest(Stream(part)), ts.ingest(Stream(part)))
+    _assert_services_equal(js, ts)
+    assert ts.queries["notify"].backend == BucketBackend(8)
+    assert ts.frontier_log == js.frontier_log
+
+
 def test_import_loads_neither_jax_nor_the_reference_package():
     code = ("import sys, repro_torch, repro_torch.core, "
             "repro_torch.streaming.service, repro_torch.kernels.maxmin.maxmin, "
             "repro_torch.kernels.ell.ell, repro_torch.core.sparse_adj, "
             "repro_torch.core.sparse_dist, "
-            "repro_torch.kernels.rowsparse.rowsparse; "
+            "repro_torch.kernels.rowsparse.rowsparse, "
+            "repro_torch.kernels.bucket.bucket, repro_torch.kernels.bucket.ops; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.')]; "
             "assert not bad, bad")
