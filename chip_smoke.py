@@ -14,11 +14,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    seconds and ptxas' registers, shared memory and spills.
 3. kernel: B1, B5 and B6 against their plain PyTorch versions on the card
    with ``torch.equal`` (tolerance 0: max and min never reassociate) on
-   the test shapes (B1 also in float16), B1 at the dense path's shape and
-   at the frontier's skinny (J=48, m in {4, 32}, 2048, 2048) slabs; then
-   CUDA-event times of B1 at the dense path's (J, N) and at N=4096,
-   beside the bound (the larger of bytes over 3.35 TB/s and min/max
-   operations over 67 TFLOP/s, the H100 SXM's published rates).
+   the test shapes (B1 also in float16 and on block-sparse operands whose
+   whole kernel tiles are -inf, which its occupancy pre-pass lets it skip),
+   B1 at the dense path's shape and at the frontier's skinny (J=48, m in
+   {4, 32}, 2048, 2048) slabs; the min/max instruction-rate microbenchmark
+   (FFMA, FMNMX, the two-input integer min/max and the DPX
+   ``__vimax3_s32``: lane operations per second, and per clock per SM at
+   the SM clock ``nvidia-smi`` reads during the run; the SASS instruction
+   counts);
+   then CUDA-event times of B1 on uniform operands (density 0.7) in [0,
+   1000) at the dense path's (J, N), at N=4096 and at m in {4, 32}, and in
+   [-500, 500) at (J, N) (B1's float compare path), beside the bound (the
+   larger of bytes over 3.35 TB/s and min/max operations over 67 TFLOP/s,
+   the H100 SXM's published rates) and the time the kernel's own min/max
+   instructions (1.5 per (i, k, n) on the integer path, 2 on the float
+   path) take at the measured rate.
 4. end to end: ``PersistentQueryService(window=20, slide=2)`` with the 11
    Table-2 queries over the SO labels as one dense group at n_slots=2048,
    each also registered as a reference RAPQ engine, plus simple-path lanes
@@ -28,7 +38,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    reference engine's, that the conflict probe moved Q3's simple lane to
    the reference RSPQ and its results equal a host RSPQ fed the whole
    stream, that Q2's conflict-free simple lane equals Q2, and that B1
-   was launched once per closure round of the run.
+   was launched once per closure round of the run. Then B1 on the run's
+   own last-round operands (the final dist gathered per transition row and
+   the adjacency rows of their labels): ``torch.equal`` against the plain
+   version, the share of operand tiles that hold an entry, and the
+   CUDA-event time beside the bound counted from what those inputs need.
 5. trace: a further short window of the same stream under
    ``torch.profiler``: its top device kernels by time.
 6. end to end, frontier and ELL: ``PersistentQueryService(window=20,
@@ -59,10 +73,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    B5 once per closure round and B1 never.
 9. B6 at the path's shapes: on phase 8's final state (the Q*F slot rows
    with the most entries, E = N*K) and at a synthetic M=4096, C=64,
-   E=32768, ``torch.equal`` against the plain version, and CUDA-event
-   times beside the bound, the plain version and the PyTorch yardstick
-   (``torch.full(-inf).scatter_reduce_(1, idx, ts, "amax")``), which the
-   port never calls.
+   E=32768, ``torch.equal`` against the plain version; device times (the
+   median of CUDA events around three replays of a CUDA graph of the
+   calls) of B6 and of the
+   PyTorch yardstick
+   (``torch.full(-inf).scatter_reduce_(1, idx, ts, "amax")``, which the
+   port never calls: its fill and scatter kernels) beside the bound, the
+   CUDA-event times per call with the host's enqueue included, the
+   wrapper's host microseconds per call, and the plain version.
 10. end to end, the bucket backend: phase 4's and then phase 8's service
    configuration with the 11 Table-2 queries registered with
    ``backend=BucketBackend(n_levels=8)`` (step 2.5 s), each fed the whole
@@ -128,13 +146,24 @@ SHAPES = [(8, 8, 8), (128, 128, 128), (130, 70, 200), (1, 256, 33),
 ODD_SHAPES = [(3, 4, 40, 40), (5, 16, 33, 33), (2, 1, 7, 19), (7, 23, 5, 64),
               (1, 130, 70, 30)]
 
-# tests/test_torch_gpu.py: B5_CASES (J, M, U, E), B6_CASES (M, C, E)
+# tests/test_torch_gpu.py: B5_CASES (J, M, U, E), B6_CASES (M, C, E, keys)
 B5_CASES = [(2, 5, 12, 3), (1, 1, 9, 1), (3, 7, 13, 2), (4, 16, 33, 4),
             (1, 130, 257, 8), (48, 4, 2048, 2), (6, 300, 700, 5)]
-B6_CASES = [(12, 4, 30), (5, 1, 33), (9, 16, 257), (7, 8, 40), (3, 64, 100),
-            (40, 256, 4097), (17, 128, 2049), (192, 4, 32768)]
+B6_CASES = [(12, 4, 30, "random"), (5, 1, 33, "random"), (9, 16, 257, "random"),
+            (7, 8, 40, "random"), (3, 64, 100, "random"), (40, 256, 4097, "random"),
+            (17, 128, 2049, "random"), (192, 4, 32768, "random"),
+            (9, 64, 8193, "random"), (11, 32, 8194, "random"), (13, 16, 8195, "random"),
+            (7, 256, 12291, "boundary"), (6, 1, 8197, "boundary"),
+            (5, 64, 4098, "boundary"), (8, 16, 9001, "free"), (3, 256, 4096, "free")]
 KERNELS = ("maxmin", "ell", "rowsparse", "bucket")
 SKINNY_M = (4, 32)        # frontier rows of B1's skinny slabs
+# tests/test_torch_gpu.py: B1 on block-sparse operands, whole tiles of the
+# kernel's (128 x 16 of a, 16 x 128 of b) all -inf
+SPARSE_PATTERNS = ("a_tiles", "b_tiles", "both_tiles", "all_neg_inf", "corners",
+                   "signed", "one_negative")
+SPARSE_SHAPES = [(2, 300, 260, 270), (3, 4, 2048, 300), (2, 32, 1000, 512)]
+A_TILE, B_TILE = (128, 16), (16, 128)
+RATE_OPS = ("FFMA", "FMNMX", "VIMNMX", "VIMNMX3")  # minmax_rate's op 0..3
 
 PROFILE_SGTS = 24         # sgts of the traced window after the main run
 CONFLICT_BEFORE_END = 40  # inserts of the main run after the Q3 conflict
@@ -258,6 +287,184 @@ def bound_b6_ms(m: int, c: int, e: int, live_slots: int):
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def block_sparse(torch, gen, a, b, pattern: str):
+    """a and b with whole kernel tiles set to -inf: about 70% of a's
+    (128 x 16) tiles ("a_tiles"), of b's (16 x 128) tiles ("b_tiles") or of
+    both, each operand keeping its first k tile; everything ("all_neg_inf");
+    or everything but the four corner entries of every tile ("corners").
+    Or values with the sign bit set, which send a block from the integer
+    compare path to the float one: all shifted down by 500 ("signed"), or
+    a's tiles cleared and one entry of its kept first k tile set to -3
+    ("one_negative")."""
+    ninf = float("-inf")
+    if pattern == "all_neg_inf":
+        return torch.full_like(a, ninf), torch.full_like(b, ninf)
+    if pattern == "signed":
+        return a - 500, b - 500
+    if pattern == "one_negative":
+        a = block_sparse(torch, gen, a, b, "a_tiles")[0]
+        a[0, a.shape[1] // 2, 1 % a.shape[2]] = -3.0
+        return a, b
+    out = []
+    for x, tile, k_axis, clear in ((a, A_TILE, 2, pattern in ("a_tiles", "both_tiles")),
+                                   (b, B_TILE, 1, pattern in ("b_tiles", "both_tiles"))):
+        j, r, c = x.shape
+        tr, tc = tile
+        if pattern == "corners":
+            keep = torch.zeros((r, c), dtype=torch.bool, device=x.device)
+            for r0 in range(0, r, tr):
+                for c0 in range(0, c, tc):
+                    for rr in (r0, min(r0 + tr, r) - 1):
+                        keep[rr, [c0, min(c0 + tc, c) - 1]] = True
+            x = x.masked_fill(~keep, ninf)
+        elif clear:
+            gone = torch.rand((j, -(-r // tr), -(-c // tc)), generator=gen,
+                              device=x.device) < 0.7
+            if k_axis == 2:
+                gone[:, :, 0] = False
+            else:
+                gone[:, 0, :] = False
+            gone = gone.repeat_interleave(tr, 1)[:, :r].repeat_interleave(tc, 2)[:, :, :c]
+            x = x.masked_fill(gone, ninf)
+        out.append(x.contiguous())
+    return out[0], out[1]
+
+
+def sass_counts(lib_path: str, kernel_name: str, opcodes):
+    """Per kernel of the library whose mangled name holds ``kernel_name``,
+    how often each opcode stem in ``opcodes`` occurs in its SASS
+    (``cuobjdump -sass``); None where cuobjdump is missing."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if kernel_name in name:
+            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", part)
+            out[name] = {op: sum(1 for o in ops if o.split(".")[0] == op)
+                         for op in opcodes}
+    return out
+
+
+def minmax_rates(torch):
+    """Phase 3's instruction-rate microbenchmark (``minmax_rate_kernel`` in
+    maxmin.cu): one wave of blocks, each thread running 8 independent
+    chains of one instruction, launched 50 times back to back. Prints and
+    returns, per instruction, lane operations per second (CUDA events), the
+    SM clock ``nvidia-smi`` reads while the launches run, and from the two
+    the lanes and warp instructions per clock per SM; then the
+    instruction counts in the SASS of the benchmark and of B1's product
+    kernels."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    run = build.bind("maxmin", "minmax_rate", [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+    per_sm_of = build.bind("maxmin", "minmax_rate_blocks_per_sm", [ctypes.c_int])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    threads, chains, unroll, iters, reps = 256, 8, 16, 4096, 50
+    stream = torch.cuda.current_stream().cuda_stream
+    rates = {}
+    for op, name in enumerate(RATE_OPS):
+        per_sm = per_sm_of(op)
+        if per_sm < 1:
+            fail(f"minmax_rate_blocks_per_sm({op}) returned {per_sm}")
+        blocks = sms * per_sm
+        sink = torch.empty(blocks * threads, dtype=torch.int32, device="cuda")
+        if run(op, blocks, 16, 1, sink.data_ptr(), stream):
+            fail(f"minmax_rate {name} did not launch")
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            run(op, blocks, iters, 1, sink.data_ptr(), stream)
+        end.record()
+        time.sleep(0.02)            # the launches are running: read the clock
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True).stdout.split()[0])
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / reps
+        ops_per_s = blocks * threads * iters * unroll * chains / (ms / 1e3)
+        lanes = ops_per_s / (sms * mhz * 1e6)
+        rates[name] = {"ops_per_s": ops_per_s, "sm_clock_mhz": mhz,
+                       "lanes_per_clk_per_sm": lanes,
+                       "warp_instr_per_clk_per_sm": lanes / 32, "ms": ms,
+                       "blocks_per_sm": per_sm}
+        print(f"[rate] {name}: {ops_per_s / 1e12:.3f} T lane-ops/s at {mhz:.0f} MHz "
+              f"(nvidia-smi, during the run) = {lanes:.1f} lanes, "
+              f"{lanes / 32:.3f} warp instructions per clock per SM "
+              f"({per_sm} blocks of 256 per SM, {ms:.3f} ms a launch)", flush=True)
+    lib = str(build.library_path("maxmin"))
+    for kernel, ops in (("minmax_rate_kernel", ("FFMA", "FMNMX", "VIMNMX", "VIMNMX3")),
+                        ("maxmin_fused_kernel", ("FMNMX", "VIMNMX", "VIMNMX3", "LDS",
+                                                 "LDGSTS", "BAR"))):
+        counts = sass_counts(lib, kernel, ops)
+        if counts is None:
+            print("[rate] SASS: cuobjdump not found", flush=True)
+        for fn, c in (counts or {}).items():
+            print(f"[rate] SASS {fn[-40:]}: {c}", flush=True)
+    return rates
+
+
+def b1_on_path_operands(torch, d_s, a_l):
+    """After phase 4: B1 on the run's own last-round operands, d_s (J, N, N)
+    the final dist gathered per transition row and a_l (J, N, N) the
+    adjacency rows of their labels. torch.equal against the plain version;
+    CUDA-event times beside the bound counted from what these inputs need
+    (the bytes of both inputs and the output, against one min and one max
+    per (j, i, k, n) with both a[j, i, k] and b[j, k, n] finite), the
+    share of k tiles the pre-pass lists, and the plain version. Frees the
+    operands."""
+    from repro_torch.kernels.maxmin import maxmin as b1
+    from repro_torch.kernels.maxmin.ref import maxmin_matmul_fused_ref
+
+    j, m, k = d_s.shape
+    n = a_l.shape[2]
+    out = b1.maxmin_matmul_fused(d_s, a_l)
+    ref = maxmin_matmul_fused_ref(d_s, a_l)
+    if not torch.equal(out, ref):
+        fail("B1 differs from its plain version on phase 4's own operands")
+    del out, ref
+    fin_a = d_s > float("-inf")
+    fin_b = a_l > float("-inf")
+    triples = int((fin_a.sum(1, dtype=torch.float64)
+                   * fin_b.sum(2, dtype=torch.float64)).sum())
+    # the tiles the pre-pass flags, and the k steps the product runs
+    rt, kt, ct = -(-m // 128), -(-k // 16), -(-n // 128)
+    pad_a = torch.nn.functional.pad(fin_a, (0, kt * 16 - k, 0, rt * 128 - m))
+    pad_b = torch.nn.functional.pad(fin_b, (0, ct * 128 - n, 0, kt * 16 - k))
+    live_a = pad_a.view(j, rt, 128, kt, 16).any(4).any(2)        # (J, RT, KT)
+    live_b = pad_b.view(j, kt, 16, ct, 128).any(4).any(2)        # (J, KT, CT)
+    steps = int((live_a.to(torch.float32) @ live_b.to(torch.float32)).sum())
+    del fin_a, fin_b, pad_a, pad_b
+    ms = time_cuda(torch, lambda: b1.maxmin_matmul_fused(d_s, a_l), 20)
+    plain = time_cuda(torch, lambda: maxmin_matmul_fused_ref(d_s, a_l), 1)
+    t_bytes = 4 * (j * m * k + j * k * n + j * m * n) / PEAK_BYTES
+    t_ops = 2.0 * triples / PEAK_F32_OPS
+    bms, by = max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    row = {"ms": ms, "plain_ms": plain, "library_ms": None, "bound_ms": bms,
+           "bound_by": by, "shape": [j, m, k, n],
+           "live_a_tiles": float(live_a.float().mean()),
+           "live_b_tiles": float(live_b.float().mean()),
+           "k_steps_run": steps / float(j * rt * ct * kt)}
+    print(f"[kernel] B1 on phase 4's last-round operands J={j} m={m} k={k} n={n}: "
+          f"{row['live_a_tiles']:.4f} of a's and {row['live_b_tiles']:.4f} of b's "
+          f"tiles hold an entry, {row['k_steps_run']:.4f} of the k steps run; "
+          f"{triples} finite (a, b) pairs; {ms:.3f} ms, bound {bms:.3f} ms ({by}), "
+          f"{100 * bms / ms:.1f}% of bound; plain {plain:.3f} ms; == plain "
+          "(torch.equal)", flush=True)
+    del d_s, a_l, live_a, live_b
+    torch.cuda.empty_cache()
+    return row
+
+
 def ptxas_summary(name: str):
     """nvcc seconds and the largest registers, shared memory and spill
     stores ptxas printed for any kernel of ``csrc/<name>.cu``."""
@@ -278,6 +485,48 @@ def print_build_log(name: str, info) -> None:
     for line in str(info["log"]).splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build]   {name}: {line.strip()}", flush=True)
+
+
+def graph_ms(torch, fn, reps: int, replays: int = 3):
+    """Device time per call from CUDA events around each of ``replays``
+    replays of a CUDA graph of ``reps`` calls (captured after a warm-up
+    call on a side stream): the calls run back to back, without the host's
+    enqueue. Returns (median, every replay's ms per call)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    each = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        each.append(start.elapsed_time(end) / reps)
+    del graph
+    return sorted(each)[len(each) // 2], each
+
+
+def host_us(torch, fn, reps: int) -> float:
+    """Mean host microseconds per call to enqueue ``fn`` (no synchronise
+    inside the timed loop)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
 
 
 def time_cuda(torch, fn, reps: int) -> float:
@@ -358,10 +607,12 @@ def main() -> None:
 
     max_err = 0.0
 
-    def check(j, m, k, n, dtype):
+    def check(j, m, k, n, dtype, sparse=None):
         nonlocal max_err
         a, b = rand_ts((j, m, k), dtype), rand_ts((j, k, n), dtype)
         a[:, : max(1, m // 7)] = float("-inf")        # all -inf rows
+        if sparse is not None:
+            a, b = block_sparse(torch, gen, a, b, sparse)
         out = b1.maxmin_matmul_fused(a, b)
         torch.cuda.synchronize()
         ref = maxmin_matmul_fused_ref(a, b)
@@ -371,7 +622,7 @@ def main() -> None:
         max_err = max(max_err, err)
         if not torch.equal(out, ref):
             fail(f"B1 differs from its plain version at J={j} m={m} k={k} "
-                 f"n={n} {dtype}: max |err| {err}")
+                 f"n={n} {dtype}{f' {sparse}' if sparse else ''}: max |err| {err}")
 
     n_checks = 0
     for dtype in (torch.float32, torch.float16):
@@ -381,12 +632,20 @@ def main() -> None:
         for (j, m, k, n) in ODD_SHAPES:
             check(j, m, k, n, dtype)
             n_checks += 1
+        for pattern in SPARSE_PATTERNS:
+            for (j, m, k, n) in SPARSE_SHAPES:
+                check(j, m, k, n, dtype, sparse=pattern)
+                n_checks += 1
     print(f"[kernel] B1 == plain (torch.equal) on {n_checks} test shapes, "
-          "float32 and float16", flush=True)
+          f"float32 and float16, {len(SPARSE_PATTERNS)} operand patterns "
+          f"({', '.join(SPARSE_PATTERNS)}) on {SPARSE_SHAPES}", flush=True)
     for m in SKINNY_M:
         check(48, m, 2048, 2048, torch.float32)
+        check(48, m, 2048, 2048, torch.float32, sparse="both_tiles")
     print(f"[kernel] B1 == plain (torch.equal) at the frontier's skinny slabs "
-          f"J=48 m in {SKINNY_M} k=n=2048 float32", flush=True)
+          f"J=48 m in {SKINNY_M} k=n=2048 float32, uniform and block-sparse",
+          flush=True)
+    rates = minmax_rates(torch)
 
     ell_err = 0.0
 
@@ -425,12 +684,12 @@ def main() -> None:
             fail(f"B6 differs from its plain version at {what}: max |err| "
                  f"{rs_err}")
 
-    for (m, c, e) in B6_CASES:
-        idx, ts = b6_operands(torch, gen, m, c, e)
-        check_b6(idx, ts, e, f"M={m} C={c} E={e}")
+    for (m, c, e, keys) in B6_CASES:
+        idx, ts = b6_operands(torch, gen, m, c, e, keys)
+        check_b6(idx, ts, e, f"M={m} C={c} E={e} keys {keys}")
     print(f"[kernel] B6 == plain (torch.equal) on {len(B6_CASES)} test shapes "
-          "(duplicate stale keys, all-free rows, C=1, E off the 2048 tile)",
-          flush=True)
+          "(duplicate stale keys, duplicates across the 4096-column tile edges, "
+          "all-free rows and operands, C=1 to 256, E % 4 in 0..3)", flush=True)
 
     # the service's dense group fixes the main path's shapes (J rows, N slots)
     window, slide, n_slots = 20.0, 2.0, 2048
@@ -456,17 +715,29 @@ def main() -> None:
           flush=True)
 
     timings = {}
-    for n_t, reps in ((N, 5), (2 * N, 2)):
-        a = rand_ts((J, n_t, n_t), torch.float32)
+    minmax = rates["FMNMX"]["ops_per_s"]
+    # uniform operands (density 0.7) in [0, 1000): every tile on the integer
+    # compare path, 1.5 min/max instructions per (i, k, n); "signed" shifts
+    # them to [-500, 500): the float path, 2 per (i, k, n)
+    for tag, m_t, n_t, reps in (("uniform", N, N, 5), ("signed", N, N, 5),
+                                ("uniform", 2 * N, 2 * N, 2),
+                                *(("uniform", m, N, 20) for m in SKINNY_M)):
+        a = rand_ts((J, m_t, n_t), torch.float32)
         b = rand_ts((J, n_t, n_t), torch.float32)
+        if tag == "signed":
+            a, b = a - 500, b - 500
         ms = time_cuda(torch, lambda: b1.maxmin_matmul_fused(a, b), reps)
-        bms, by = bound_ms(J, n_t, n_t, n_t)
+        bms, by = bound_ms(J, m_t, n_t, n_t)
+        per = 2.0 if tag == "signed" else 1.5
+        at_rate = per * J * m_t * n_t * n_t / minmax * 1e3
         plain = None
-        if n_t == N:
+        if (tag, n_t, m_t) == ("uniform", N, N):
             plain = time_cuda(torch, lambda: maxmin_matmul_fused_ref(a, b), 1)
-        timings[n_t] = (ms, bms, by, plain)
-        print(f"[kernel] B1 J={J} N={n_t}: {ms:.3f} ms, bound {bms:.3f} ms "
-              f"({by}), {100 * bms / ms:.1f}% of bound; plain "
+        timings[(tag, n_t, m_t)] = (ms, bms, by, plain, at_rate)
+        print(f"[kernel] B1 {tag} J={J} m={m_t} k=n={n_t}: {ms:.3f} ms, bound "
+              f"{bms:.3f} ms ({by}), {100 * bms / ms:.1f}% of bound; {per} min/max "
+              f"per (i, k, n) at the measured FMNMX rate {at_rate:.3f} ms, "
+              f"{100 * at_rate / ms:.1f}%; plain "
               f"{'%.3f ms' % plain if plain is not None else 'not measured'}",
               flush=True)
         del a, b
@@ -532,7 +803,13 @@ def main() -> None:
     lat = sorted(svc.stats["Q1"].latencies_us)
     p50 = lat[len(lat) // 2]
     p99 = lat[min(int(0.99 * len(lat)), len(lat) - 1)]
-    ms_b1 = timings[N][0]
+    # B1 on this run's own last-round operands (the final state's gathered
+    # dist slabs and adjacency rows), beside what they need
+    btt = group.btt
+    b1_path = b1_on_path_operands(
+        torch, ex.arrays.dist[btt.qidx, :, :, btt.src].contiguous(),
+        ex.dense_adj()[btt.lab].contiguous())
+    ms_b1 = b1_path["ms"]
     # host clock per path (record_latency): every dense query records the
     # group's dispatch time, so one of them carries it
     dense_s = sum(svc.stats["Q1"].latencies_us) / 1e6
@@ -544,9 +821,9 @@ def main() -> None:
     print(f"[e2e] {steps} dispatches, {rounds} closure rounds "
           f"({rounds / steps:.3f} per dispatch), host syncs "
           f"{syncs / steps:.3f} per dispatch, B1 launches {launches} "
-          f"({launches / len(tuples):.3f} per sgt); B1 at {ms_b1:.3f} ms "
-          f"x {launches} = {launches * ms_b1 / 1e3:.3f} s of {wall:.3f} s wall",
-          flush=True)
+          f"({launches / len(tuples):.3f} per sgt); B1 on the last round's "
+          f"operands {ms_b1:.3f} ms x {launches} = {launches * ms_b1 / 1e3:.3f} s "
+          f"of {wall:.3f} s wall", flush=True)
     print(f"[e2e] wall split (host clock): dense-group dispatches "
           f"{dense_s:.3f} s, 11 reference RAPQ engines {ref_s:.3f} s, rest "
           f"{wall - dense_s - ref_s:.3f} s", flush=True)
@@ -602,7 +879,6 @@ def main() -> None:
     # -- 12. the legacy single-query round --------------------------------------
     legacy = legacy_phase(torch, queries["Q1"], legacy_in, device=None)
 
-    ms, bms, by, plain = timings[N]
     e5, b6p = b5_rows["dense"], b6_rows["path"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
 
@@ -615,10 +891,17 @@ def main() -> None:
                 **{k: data.get(k) for k in keys}, **ptxas_summary(src)}
 
     kernels = [
-        row("B1 maxmin_matmul_fused", "maxmin",
-            "src/repro/kernels/maxmin/maxmin.py:138", launches, max_err,
-            {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-             "shape": [J, N, N, N]}),
+        # B1's numbers are on the main path's own operands (phase 4's last
+        # round); its uniform-operand times, the rate microbenchmark and the
+        # other readings ride along
+        {**row("B1 maxmin_matmul_fused", "maxmin",
+               "src/repro/kernels/maxmin/maxmin.py:138", launches, max_err, b1_path),
+         "path_operands": {k: b1_path[k] for k in b1_path if k not in keys},
+         "uniform": [{"operands": tag, "shape": [J, m_t, n_t, n_t], "ms": t[0],
+                      "bound_ms": t[1], "bound_by": t[2], "plain_ms": t[3],
+                      "at_measured_minmax_rate_ms": t[4]}
+                     for (tag, n_t, m_t), t in timings.items()],
+         "minmax_rate": rates},
         row("B2 maxmin_matmul", "maxmin", "src/repro/kernels/maxmin/maxmin.py:67",
             legacy["b2_launches"], lvl_rows["B2"]["max_abs_err"], lvl_rows["B2"]),
         row("B3 bucket_maxmin_fused", "bucket",
@@ -633,9 +916,13 @@ def main() -> None:
          "s32": {"launches": bk_rs["launches"][2],
                  "max_abs_err": lvl_rows["B5-int32"]["max_abs_err"],
                  **{k: lvl_rows["B5-int32"][k] for k in keys}}},
-        row("B6 rowsparse_gather", "rowsparse",
-            "src/repro/kernels/rowsparse/rowsparse.py:40", rs["b6_launches"],
-            rs_err, b6p),
+        {**row("B6 rowsparse_gather", "rowsparse",
+               "src/repro/kernels/rowsparse/rowsparse.py:40", rs["b6_launches"],
+               rs_err, b6p),
+         # ms and library_ms are device times; per call with the host's
+         # enqueue, the host's time per call, and the synthetic shape beside
+         "per_call": {k: b6p[k] for k in b6p if k not in keys},
+         "synthetic": b6_rows["synthetic"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
@@ -833,25 +1120,36 @@ def ell_phase(torch, queries, n_inserts: int, device=None, n_slots: int = ELL_SL
     return out
 
 
-def b6_operands(torch, gen, m: int, c: int, e: int):
-    """Random slot rows on the card: keys in [0, E), a quarter of the slots
+def b6_operands(torch, gen, m: int, c: int, e: int, keys: str = "random"):
+    """Random slot rows on the card: keys in [0, E) ("random") or within two
+    columns of a 4096-column tile edge ("boundary"), a quarter of the slots
     free (-inf, stale keys), duplicate keys in odd slots, every third row
-    all free."""
+    all free; every slot free with ``keys="free"``."""
     idx = torch.randint(0, e, (m, c), generator=gen, device="cuda",
                         dtype=torch.int32)
+    if keys == "boundary":
+        near = (torch.arange(4096, e, 4096, device="cuda")[:, None]
+                + torch.arange(-2, 2, device="cuda")[None]).reshape(-1)
+        near = near[(near >= 0) & (near < e)].to(torch.int32)
+        idx = near[torch.randint(0, near.numel(), (m, c), generator=gen,
+                                 device="cuda")]
     if c > 1:
         idx[:, 1::2] = idx[:, 0:1]
     ts = torch.rand((m, c), generator=gen, device="cuda") * 1000.0
     ts[torch.rand((m, c), generator=gen, device="cuda") < 0.25] = float("-inf")
     ts[::3] = float("-inf")
+    if keys == "free":
+        ts[:] = float("-inf")
     return idx, ts
 
 
 def b6_at_path_shapes(torch, gen, rs, check_b6):
     """Phase 9: B6 against its plain version and timed on phase 8's final
-    slot rows (Q*F, C) and at a synthetic M=4096, C=64, E=32768, beside the
-    bound, the plain version and the one-call PyTorch yardstick. Frees the
-    operands."""
+    slot rows (Q*F, C) and at a synthetic M=4096, C=64, E=32768: device
+    time (``graph_ms``) beside the bound and the one-call PyTorch
+    yardstick's device time (its fill and scatter kernels), the CUDA-event
+    time per call with the host's enqueue included, the wrapper's host time
+    per call, and the plain version. Frees the operands."""
     from repro_torch.kernels.rowsparse import rowsparse as b6
     from repro_torch.kernels.rowsparse.ref import rowsparse_gather_ref
 
@@ -872,17 +1170,33 @@ def b6_at_path_shapes(torch, gen, rs, check_b6):
         if not torch.equal(yardstick(), b6.rowsparse_gather(idx, ts, e)):
             fail(f"the yardstick differs from B6 at the {tag} shape")
         torch.cuda.synchronize()
-        ms = time_cuda(torch, lambda: b6.rowsparse_gather(idx, ts, e), reps)
+        def kernel():
+            return b6.rowsparse_gather(idx, ts, e)
+
+        ms, ms_each = graph_ms(torch, kernel, reps)
+        lib, lib_each = graph_ms(torch, yardstick, reps)
+        ms_call = time_cuda(torch, kernel, reps)
+        lib_call = time_cuda(torch, yardstick, reps)
+        host = host_us(torch, kernel, reps)
         plain = time_cuda(torch, lambda: rowsparse_gather_ref(idx, ts, e),
                           max(1, reps // 5))
-        lib = time_cuda(torch, yardstick, max(1, reps // 5))
         live = int((ts > float("-inf")).sum())
         bms, by = bound_b6_ms(m, c, e, live)
         rows[tag] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
-                     "bound_ms": bms, "bound_by": by, "shape": [m, c, e]}
+                     "bound_ms": bms, "bound_by": by, "shape": [m, c, e],
+                     "ms_graph_replays": ms_each, "library_ms_graph_replays": lib_each,
+                     "ms_per_call_with_enqueue": ms_call,
+                     "library_ms_per_call_with_enqueue": lib_call,
+                     "host_us_per_call": host}
         print(f"[kernel] B6 {tag} shape M={m} C={c} E={e} ({live} live slots): "
-              f"{ms:.3f} ms, bound {bms:.3f} ms ({by}), {100 * bms / ms:.1f}% of "
-              f"bound; plain {plain:.3f} ms; yardstick {lib:.3f} ms", flush=True)
+              f"device {ms:.4f} ms, bound {bms:.4f} ms ({by}), {100 * bms / ms:.1f}% "
+              f"of bound; yardstick device {lib:.4f} ms (fill + scatter), both the "
+              f"median of 3 replays of a CUDA graph of {reps} calls "
+              f"({[round(x, 4) for x in ms_each]}, {[round(x, 4) for x in lib_each]}); "
+              f"per call, "
+              f"host enqueue included: {ms_call:.4f} ms, yardstick {lib_call:.4f} "
+              f"ms; wrapper host {host:.1f} us per call; plain {plain:.3f} ms",
+              flush=True)
         del idx, ts, idx_l
     del path
     torch.cuda.empty_cache()

@@ -17,7 +17,7 @@ import ctypes
 
 import torch
 
-from ..build import load
+from ..build import bind, call_on
 from .ref import bucket_maxmin_fused_ref, bucket_maxmin_ref
 
 #: levels are staged as int8 in the kernel
@@ -32,10 +32,7 @@ _ARGTYPES = {
 
 
 def _kernel(name: str):
-    fn = getattr(load("bucket"), name)
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = ctypes.c_int
-    return fn
+    return bind("bucket", name, _ARGTYPES[name])
 
 
 def _check_card(a: torch.Tensor, b: torch.Tensor, n_levels: int, what: str) -> None:
@@ -52,9 +49,7 @@ def _check_card(a: torch.Tensor, b: torch.Tensor, n_levels: int, what: str) -> N
 
 
 def _launch(fn, a, out, *args) -> None:
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(*args, stream)
+    err = call_on(a, fn, *args)
     if err != 0:
         raise RuntimeError(f"bucket kernel launch failed: CUDA error {err}")
 

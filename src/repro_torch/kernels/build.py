@@ -21,7 +21,9 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 #: the checkout's git-ignored build directory (src/repro_torch/kernels ->
@@ -38,6 +40,7 @@ NVCC_FLAGS = (
 #: "seconds" is 0.0 when the library was already built
 BUILD_INFO: Dict[str, Dict[str, object]] = {}
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_BOUND: Dict[Tuple[str, str], Callable] = {}
 
 
 def _nvcc() -> str:
@@ -121,3 +124,36 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name)))
         _LOADED[name] = lib
     return lib
+
+
+def bind(name: str, entry: str, argtypes: Sequence, restype=ctypes.c_int) -> Callable:
+    """The C function ``entry`` of the library for ``csrc/<name>.cu`` with
+    its argument and result types set, resolved once and cached: a wrapper
+    calls it on every launch, where looking it up and setting ``argtypes``
+    anew cost host time."""
+    fn = _BOUND.get((name, entry))
+    if fn is None:
+        fn = getattr(load(name), entry)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        _BOUND[(name, entry)] = fn
+    return fn
+
+
+#: the current stream's raw handle on a device index, as Triton's launcher
+#: reads it: cheaper than building the public ``torch.cuda.current_stream``
+#: object on every launch
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def call_on(t, fn: Callable, *args) -> int:
+    """``fn(*args, stream)`` with the raw handle of the current stream on
+    ``t``'s device; that device is made current only when it is not
+    already (a launch goes to the current device's context)."""
+    dev = t.device
+    stream = (_RAW_STREAM(dev.index) if _RAW_STREAM is not None
+              else torch.cuda.current_stream(dev).cuda_stream)
+    if dev.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(dev):
+        return fn(*args, stream)

@@ -16,7 +16,7 @@ import ctypes
 
 import torch
 
-from ..build import load
+from ..build import bind, call_on
 from .ref import ell_gather_contract_ref
 
 NEG_INF = float("-inf")
@@ -36,12 +36,8 @@ def _zero(dtype: torch.dtype):
 
 
 def _kernel(dtype: torch.dtype):
-    fn = getattr(load("ell"), _ENTRIES[dtype])
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return bind("ell", _ENTRIES[dtype], [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                + [ctypes.c_void_p])
 
 
 def ell_gather_contract(d: torch.Tensor, idx: torch.Tensor,
@@ -80,11 +76,8 @@ def ell_gather_contract(d: torch.Tensor, idx: torch.Tensor,
     out = torch.full((j, m, u), _zero(d.dtype), dtype=d.dtype, device=d.device)
     if j == 0 or m == 0 or u == 0 or e == 0:
         return out
-    fn = _kernel(d.dtype)
-    with torch.cuda.device(d.device):
-        stream = torch.cuda.current_stream(d.device).cuda_stream
-        err = fn(d.data_ptr(), idx.data_ptr(), ts.data_ptr(), out.data_ptr(),
-                 j, m, u, e, stream)
+    err = call_on(d, _kernel(d.dtype), d.data_ptr(), idx.data_ptr(), ts.data_ptr(),
+                  out.data_ptr(), j, m, u, e)
     if err != 0:
         raise RuntimeError(f"ell gather-contract launch failed: CUDA error {err}")
     ell_gather_contract.launches += 1

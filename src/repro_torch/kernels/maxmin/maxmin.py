@@ -17,28 +17,37 @@ import ctypes
 
 import torch
 
-from ..build import load
+from ..build import bind, call_on
 from .ref import maxmin_matmul_fused_ref, maxmin_matmul_ref
 
 #: the port's Hopper tile table, one entry so far: BM=128 names, to the CUDA
 #: source's ``dispatch``, a 128 x 128 output tile with an 8 x 8 register
-#: block per thread, for the dense round's square (N, N) slabs. It is exact
-#: for every m, k, n >= 1 (-inf fills the ragged edges); a tile for skinny
-#: slabs belongs with the frontier slice (ROADMAP B1).
+#: block per thread and 16-deep k tiles in a 3-stage cp.async ring, after an
+#: occupancy pre-pass that lets the product skip k tiles where an operand
+#: tile is all -inf. It is exact for every m, k, n >= 1 (-inf fills the
+#: ragged edges); skinny (F, N) slabs run it too, their warps past m idle.
 _TILE_BM = 128
 
 _FUNCS = {torch.float32: "maxmin_fused_f32", torch.float16: "maxmin_fused_f16"}
 _PAIR_FUNCS = {torch.float32: "maxmin_f32", torch.float16: "maxmin_f16"}
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def _kernel(dtype: torch.dtype, single_pair: bool = False):
-    lib = load("maxmin")
-    fn = getattr(lib, (_PAIR_FUNCS if single_pair else _FUNCS)[dtype])
-    n_ints = 4 if single_pair else 5       # (J,) m, k, n, bm
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * n_ints
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    """The C entry: a, b, out, flags, flag bytes, (J,) m, k, n, bm, stream."""
+    ints = [_I] * (4 if single_pair else 5)
+    return bind("maxmin", (_PAIR_FUNCS if single_pair else _FUNCS)[dtype],
+                [_P] * 4 + [_LL] + ints + [_P])
+
+
+def _flag_bytes(j: int, m: int, k: int, n: int) -> int:
+    """Bytes of the occupancy flags one launch needs (the pre-pass writes
+    every one of them, so they need no fill)."""
+    nbytes = bind("maxmin", "maxmin_flag_bytes", [_I] * 5, ctypes.c_longlong)(
+        j, m, k, n, _TILE_BM)
+    if nbytes < 0:
+        raise ValueError(f"no tile entry {_TILE_BM} in maxmin.cu")
+    return nbytes
 
 
 def _check_card(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
@@ -51,10 +60,14 @@ def _check_card(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
         raise ValueError(f"kernel {what} takes contiguous operands")
 
 
-def _launch(fn, a, *args) -> None:
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(*args, stream)
+def _launch(a, b, out, j: int, m: int, k: int, n: int, single_pair: bool) -> None:
+    """The pre-pass and the product on a's device and current stream, with
+    the flags in memory from PyTorch's allocator."""
+    nbytes = _flag_bytes(j, m, k, n)
+    flags = torch.empty(nbytes, dtype=torch.uint8, device=a.device)
+    dims = (m, k, n) if single_pair else (j, m, k, n)
+    err = call_on(a, _kernel(a.dtype, single_pair), a.data_ptr(), b.data_ptr(),
+                  out.data_ptr(), flags.data_ptr(), nbytes, *dims, _TILE_BM)
     if err != 0:
         raise RuntimeError(f"maxmin kernel launch failed: CUDA error {err}")
 
@@ -80,8 +93,7 @@ def maxmin_matmul_fused(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if j == 0 or m == 0 or n == 0 or k == 0:
         return torch.full((j, m, n), float("-inf"), dtype=a.dtype, device=a.device)
     out = torch.empty((j, m, n), dtype=a.dtype, device=a.device)
-    _launch(_kernel(a.dtype), a, a.data_ptr(), b.data_ptr(), out.data_ptr(),
-            j, m, k, n, _TILE_BM)
+    _launch(a, b, out, j, m, k, n, single_pair=False)
     maxmin_matmul_fused.launches += 1
     return out
 
@@ -110,8 +122,7 @@ def maxmin_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if m == 0 or n == 0 or k == 0:
         return torch.full((m, n), float("-inf"), dtype=a.dtype, device=a.device)
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    _launch(_kernel(a.dtype, single_pair=True), a, a.data_ptr(), b.data_ptr(),
-            out.data_ptr(), m, k, n, _TILE_BM)
+    _launch(a, b, out, 1, m, k, n, single_pair=True)
     maxmin_matmul.launches += 1
     return out
 

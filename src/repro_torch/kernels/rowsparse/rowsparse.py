@@ -14,18 +14,12 @@ import ctypes
 
 import torch
 
-from ..build import load
+from ..build import bind, call_on
 from .ref import rowsparse_gather_ref
 
 _INT_MAX = 2**31 - 1
-
-
-def _kernel():
-    fn = load("rowsparse").rowsparse_gather_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+#: the C entry's argument types: idx, ts, out, M, C, E, stream
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def rowsparse_gather(idx: torch.Tensor, ts: torch.Tensor, e: int) -> torch.Tensor:
@@ -60,10 +54,8 @@ def rowsparse_gather(idx: torch.Tensor, ts: torch.Tensor, e: int) -> torch.Tenso
     out = torch.empty((m, e), dtype=ts.dtype, device=ts.device)
     if m == 0:
         return out
-    fn = _kernel()
-    with torch.cuda.device(idx.device):
-        stream = torch.cuda.current_stream(idx.device).cuda_stream
-        err = fn(idx.data_ptr(), ts.data_ptr(), out.data_ptr(), m, c, e, stream)
+    err = call_on(idx, bind("rowsparse", "rowsparse_gather_f32", _ARGTYPES),
+                  idx.data_ptr(), ts.data_ptr(), out.data_ptr(), m, c, e)
     if err != 0:
         raise RuntimeError(f"row-sparse gather launch failed: CUDA error {err}")
     rowsparse_gather.launches += 1

@@ -62,6 +62,107 @@ def test_b1_kernel_equals_plain_version(cuda, J, m, k, n, dtype):
     assert torch.equal(out, maxmin_matmul_fused_ref(a, b))
 
 
+# block-sparse operands on the kernel's own tiles (128 x 16 of a, 16 x 128
+# of b), which the occupancy pre-pass flags and the product skips; values
+# with the sign bit set (all of them, or one in a kept tile), which send a
+# block from the integer compare path to the float one; ragged
+# m, k, n (not multiples of the tile or of 4, so the 4-byte copy path),
+# the aligned 16-byte path, and the frontier's skinny m in {4, 32}
+SPARSE_SHAPES = [(2, 300, 260, 270), (1, 128, 128, 128), (3, 4, 2048, 300),
+                 (2, 32, 1000, 512), (2, 257, 49, 131), (1, 130, 70, 30)]
+SPARSE_PATTERNS = ["a_tiles", "b_tiles", "both_tiles", "all_neg_inf", "corners",
+                   "signed", "one_negative"]
+A_TILE, B_TILE = (128, 16), (16, 128)
+
+
+def _tiles(x, tile):
+    """(slices of) every tile of x (J, R, C)."""
+    _, r, c = x.shape
+    return [(slice(r0, r0 + tile[0]), slice(c0, c0 + tile[1]))
+            for r0 in range(0, r, tile[0]) for c0 in range(0, c, tile[1])]
+
+
+def _clear_tiles(rng, x, tile, k_axis):
+    """Most tiles of x all -inf, each j on its own draw; the first k tile
+    (k along ``k_axis``, 1 or 2) stays, so a and b both hold one."""
+    for j in range(x.shape[0]):
+        for rs, cs in _tiles(x, tile):
+            first_k = (rs if k_axis == 1 else cs).start == 0
+            if not first_k and rng.random() < 0.7:
+                x[j, rs, cs] = -np.inf
+
+
+def _corners_only(rng, x, tile):
+    """x all -inf but for the four corner entries of every tile."""
+    out = np.full_like(x, -np.inf)
+    for rs, cs in _tiles(x, tile):
+        r1, c1 = min(rs.stop, x.shape[1]) - 1, min(cs.stop, x.shape[2]) - 1
+        for r in (rs.start, r1):
+            for c in (cs.start, c1):
+                out[:, r, c] = rng.uniform(0.0, 1000.0, x.shape[0])
+    return out
+
+
+def _sparse_operands(rng, pattern, J, m, k, n, dtype):
+    a = _rand_ts(rng, (J, m, k), dtype)
+    b = _rand_ts(rng, (J, k, n), dtype)
+    if pattern in ("a_tiles", "both_tiles"):
+        _clear_tiles(rng, a, A_TILE, k_axis=2)
+    if pattern in ("b_tiles", "both_tiles"):
+        _clear_tiles(rng, b, B_TILE, k_axis=1)
+    if pattern == "all_neg_inf":
+        a[:], b[:] = -np.inf, -np.inf
+    if pattern == "corners":
+        a, b = _corners_only(rng, a, A_TILE), _corners_only(rng, b, B_TILE)
+    if pattern == "signed":                      # values in [-500, 500)
+        a, b = a - dtype(500), b - dtype(500)
+    if pattern == "one_negative":
+        _clear_tiles(rng, a, A_TILE, k_axis=2)
+        a[0, m // 2, 1 % k] = dtype(-3.0)        # in the first k tile, kept
+    return a, b
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float16])
+@pytest.mark.parametrize("J,m,k,n", SPARSE_SHAPES)
+@pytest.mark.parametrize("pattern", SPARSE_PATTERNS)
+def test_b1_b2_on_block_sparse_operands(cuda, pattern, J, m, k, n, dtype):
+    """B1 (with its occupancy pre-pass) and B2 (J = 1) equal their plain
+    versions where whole operand tiles are -inf: the skipped k steps
+    change nothing, and a lone finite entry in any corner of a tile keeps
+    its tile; and where values have the sign bit set, which send a block
+    from the integer compare path to the float one."""
+    rng = np.random.default_rng(J * 7 + m + k + n + SPARSE_PATTERNS.index(pattern))
+    a_np, b_np = _sparse_operands(rng, pattern, J, m, k, n, dtype)
+    a, b = torch.from_numpy(a_np).to(cuda), torch.from_numpy(b_np).to(cuda)
+    before = (b1.maxmin_matmul_fused.launches, b1.maxmin_matmul.launches)
+    out = b1.maxmin_matmul_fused(a, b)
+    pair = b1.maxmin_matmul(a[0].contiguous(), b[0].contiguous())
+    torch.cuda.synchronize()
+    assert (b1.maxmin_matmul_fused.launches, b1.maxmin_matmul.launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref = maxmin_matmul_fused_ref(a, b)
+    assert torch.equal(out, ref)
+    assert torch.equal(pair, maxmin_matmul_ref(a[0], b[0]))
+    if pattern == "all_neg_inf":
+        assert bool(torch.isneginf(out).all())
+    else:
+        assert bool(torch.isfinite(ref).any())      # the case exercises something
+
+
+def test_b1_on_misaligned_views(cuda):
+    """Contiguous operands whose base is not 16-byte aligned (a view one
+    element into its storage) take the 4-byte copy path."""
+    rng = np.random.default_rng(11)
+    base_a = torch.from_numpy(_rand_ts(rng, (2 * 64 * 128 + 1,), np.float32)).to(cuda)
+    base_b = torch.from_numpy(_rand_ts(rng, (2 * 128 * 96 + 1,), np.float32)).to(cuda)
+    a = base_a[1:].view(2, 64, 128)
+    b = base_b[1:].view(2, 128, 96)
+    assert a.is_contiguous() and a.data_ptr() % 16 != 0
+    out = b1.maxmin_matmul_fused(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(out, maxmin_matmul_fused_ref(a, b))
+
+
 def test_b1_refuses_non_contiguous(cuda):
     a = torch.zeros((2, 8, 8), device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -207,19 +308,37 @@ def test_frontier_engine_on_card_equals_engine_on_cpu(cuda, adj_layout):
         assert (b1_runs, b5_runs) == (gpu.total_rounds, 0)
 
 
-# (M, C, E): C up to 256, E off the kernel's 2048-column tile
-B6_CASES = [(12, 4, 30), (5, 1, 33), (9, 16, 257), (7, 8, 40), (3, 64, 100),
-            (40, 256, 4097), (17, 128, 2049), (192, 4, 32768)]
+# (M, C, E, keys): C from 1 to 256, E off the kernel's 4096-column tile
+# and not a multiple of 4 (rows start off 16-byte alignment), keys drawn
+# uniformly ("random"), crowded with duplicates around the 4096-column tile
+# boundaries ("boundary"), or every slot free ("free")
+B6_CASES = [(12, 4, 30, "random"), (5, 1, 33, "random"), (9, 16, 257, "random"),
+            (7, 8, 40, "random"), (3, 64, 100, "random"), (40, 256, 4097, "random"),
+            (17, 128, 2049, "random"), (192, 4, 32768, "random"),
+            (9, 64, 8193, "random"), (11, 32, 8194, "random"), (13, 16, 8195, "random"),
+            (7, 256, 12291, "boundary"), (6, 1, 8197, "boundary"),
+            (5, 64, 4098, "boundary"), (8, 16, 9001, "free"), (3, 256, 4096, "free")]
 
 
-@pytest.mark.parametrize("M,C,E", B6_CASES)
-def test_b6_kernel_equals_plain_version(cuda, M, C, E):
-    rng = np.random.default_rng(M * 1000 + C + E)
-    idx = rng.integers(0, E, (M, C)).astype(np.int32)
+def _b6_operands(rng, m, c, e, keys):
+    idx = rng.integers(0, e, (m, c)).astype(np.int32)
+    if keys == "boundary":                       # both sides of each tile edge
+        edges = np.arange(4096, e, 4096)
+        near = (edges[:, None] + np.arange(-2, 2)[None]).reshape(-1)
+        idx = rng.choice(near[(near >= 0) & (near < e)], (m, c)).astype(np.int32)
     idx[:, 1::2] = idx[:, :1]                    # duplicate (stale) keys
-    ts = rng.uniform(0.0, 1000.0, (M, C)).astype(np.float32)
+    ts = rng.uniform(0.0, 1000.0, (m, c)).astype(np.float32)
     ts[rng.random(ts.shape) < 0.25] = -np.inf    # free slots
     ts[::3] = -np.inf                            # all-free rows
+    if keys == "free":
+        ts[:] = -np.inf
+    return idx, ts
+
+
+@pytest.mark.parametrize("M,C,E,keys", B6_CASES)
+def test_b6_kernel_equals_plain_version(cuda, M, C, E, keys):
+    rng = np.random.default_rng(M * 1000 + C + E)
+    idx, ts = _b6_operands(rng, M, C, E, keys)
     idx, ts = torch.from_numpy(idx).to(cuda), torch.from_numpy(ts).to(cuda)
     before = b6.rowsparse_gather.launches
     out = b6.rowsparse_gather(idx, ts, E)

@@ -1,5 +1,6 @@
 """Kernels B1 and B5 in the port: their plain PyTorch versions against the
-JAX package's Pallas kernels (interpret mode) and references, bit for bit.
+JAX package's Pallas kernels (interpret mode) and references, bit for bit
+(B1 on dense and on block-sparse operands).
 
 The same numpy inputs, made from a seed, go through both packages. Max and
 min never reassociate, so the tolerance is 0 (``assert_array_equal``). On
@@ -49,19 +50,35 @@ def _operands(j, m, k, n, dtype):
     return a, b
 
 
+def _block_sparse(a, b, seed):
+    """Copies of a and b with most (8, 4) tiles of a and (4, 8) tiles of b
+    all -inf, the regime of the main path's operands, where the kernel
+    skips k steps whose operand tile is all -inf."""
+    rng = np.random.default_rng(seed)
+    a, b = a.copy(), b.copy()
+    for x, (tr, tc) in ((a, (8, 4)), (b, (4, 8))):
+        _, r, c = x.shape
+        for r0 in range(0, r, tr):
+            for c0 in range(0, c, tc):
+                if rng.random() < 0.7:
+                    x[:, r0:r0 + tr, c0:c0 + tc] = -np.inf
+    return a, b
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.float16])
 @pytest.mark.parametrize("J,m,k,n", CASES)
 def test_plain_b1_matches_jax_fused_kernel(J, m, k, n, dtype):
-    a, b = _operands(J, m, k, n, dtype)
-    ref = np.asarray(jax_fused(jnp.asarray(a), jnp.asarray(b), interpret=True))
-    out = maxmin_matmul_fused_ref(torch.from_numpy(a), torch.from_numpy(b))
-    assert out.dtype == torch.from_numpy(a).dtype
-    np.testing.assert_array_equal(out.numpy(), ref)
-    # the wrapper on a CPU tensor is the plain version, and launches nothing
-    before = b1.maxmin_matmul_fused.launches
-    wrapped = b1.maxmin_matmul_fused(torch.from_numpy(a), torch.from_numpy(b))
-    np.testing.assert_array_equal(wrapped.numpy(), ref)
-    assert b1.maxmin_matmul_fused.launches == before
+    dense = _operands(J, m, k, n, dtype)
+    for a, b in (dense, _block_sparse(*dense, seed=J + m + k + n)):
+        ref = np.asarray(jax_fused(jnp.asarray(a), jnp.asarray(b), interpret=True))
+        out = maxmin_matmul_fused_ref(torch.from_numpy(a), torch.from_numpy(b))
+        assert out.dtype == torch.from_numpy(a).dtype
+        np.testing.assert_array_equal(out.numpy(), ref)
+        # the wrapper on a CPU tensor is the plain version, and launches nothing
+        before = b1.maxmin_matmul_fused.launches
+        wrapped = b1.maxmin_matmul_fused(torch.from_numpy(a), torch.from_numpy(b))
+        np.testing.assert_array_equal(wrapped.numpy(), ref)
+        assert b1.maxmin_matmul_fused.launches == before
 
 
 @pytest.mark.parametrize("J,m,k,n", ODD_SHAPES)
