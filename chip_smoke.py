@@ -98,16 +98,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and B6 once per frontier insert that did not fall back (B1 and B3
    never). Each
    run's last window (the twin's traced sgts) runs under
-   ``torch.profiler``: its top device kernels.
+   ``torch.profiler``: its top device kernels. After the dense run, B3 on
+   that run's own last-round level operands (the final dist gathered per
+   transition row and the adjacency rows of their labels, encoded on the
+   run's grid): ``torch.equal`` against the plain version and the
+   yardstick, the share of a's and b's pre-pass tiles above level 0 and of
+   the (warp, k tile, threshold) steps the product runs (from bucket.cu's
+   measurement-only counting entry), and CUDA-event times beside the bound
+   counted from what those inputs need, the plain version and the
+   yardstick.
 11. B3, B4, B2 and B5 on int32 levels against their plain versions
-   (``torch.equal``) on the test shapes and at the path's shapes (B3 at
-   (J, 2048, 2048, 2048, T=9) and at the frontier's m in {4, 32}; B2 and
-   B4 at 2048^3; B5-int32 at phase 6's frontier shape, on phase 6's
-   operands encoded to levels); CUDA-event times beside the bound (the
-   larger of bytes over 3.35 TB/s and 2*J*m*k*n*T int8 operations over
-   1979 TOP/s for B3/B4), the plain version and the library yardstick (T
+   (``torch.equal``) on the test shapes, on B3's level patterns
+   (``tests/_torch_levels.py``: whole pre-pass tiles at level 0, corner
+   entries, the worst case, the clamp; T in {0, 1, 9, 127}) at ragged,
+   skinny and long-k shapes, and at the path's shapes (B3 at (J, 2048,
+   2048, 2048, T=9) and at the frontier's m in {4, 32}; B2 and B4 at
+   2048^3; B5-int32 at phase 6's frontier shape, on phase 6's operands
+   encoded to levels); CUDA-event times beside the bound (the larger of
+   bytes over 3.35 TB/s and, for B3/B4, the int8 operations the data
+   needs, 2 per (j, i, k, n, theta) with both levels >= theta, over 1979
+   TOP/s), the plain version and the library yardstick (T
    ``torch.bmm`` calls on bf16 0/1 operands, then the compare and sum),
-   which the port never calls.
+   which the port never calls: B3 on uniform levels and on the worst case
+   (a at T, b at T but for one level-0 column in every 32, so every
+   threshold of every k tile runs), each with the share of steps run.
 12. the legacy single-query round: phase 4's final dense adjacency and
    Q1's DFA at n_slots=2048. ``closure`` from -inf with the "cuda"
    backend (B2) is ``torch.equal`` to "plain", with B2 launched once per
@@ -162,6 +176,10 @@ SKINNY_M = (4, 32)        # frontier rows of B1's skinny slabs
 SPARSE_PATTERNS = ("a_tiles", "b_tiles", "both_tiles", "all_neg_inf", "corners",
                    "signed", "one_negative")
 SPARSE_SHAPES = [(2, 300, 260, 270), (3, 4, 2048, 300), (2, 32, 1000, 512)]
+# tests/test_torch_gpu.py: B3_SHAPES (J, m, k, n) for B3/B4's level patterns
+B3_SHAPES = [(2, 300, 260, 270), (1, 64, 128, 128), (3, 4, 1000, 300),
+             (2, 32, 1000, 512), (2, 257, 49, 131), (1, 130, 70, 30),
+             (1, 40, 8325, 70)]
 A_TILE, B_TILE = (128, 16), (16, 128)
 RATE_OPS = ("FFMA", "FMNMX", "VIMNMX", "VIMNMX3")  # minmax_rate's op 0..3
 
@@ -557,6 +575,7 @@ def main() -> None:
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from a "
              "checkout of the repo")
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "tests"))   # _torch_levels: B3's level patterns
 
     # -- 1. device -----------------------------------------------------------
     import torch
@@ -904,9 +923,13 @@ def main() -> None:
          "minmax_rate": rates},
         row("B2 maxmin_matmul", "maxmin", "src/repro/kernels/maxmin/maxmin.py:67",
             legacy["b2_launches"], lvl_rows["B2"]["max_abs_err"], lvl_rows["B2"]),
-        row("B3 bucket_maxmin_fused", "bucket",
-            "src/repro/kernels/bucket/bucket.py:93", bk["launches"][0],
-            lvl_rows["B3"]["max_abs_err"], lvl_rows["B3"]),
+        # B3's numbers are on the main path's own operands (phase 10's last
+        # round); its uniform and worst-case readings ride along
+        {**row("B3 bucket_maxmin_fused", "bucket",
+               "src/repro/kernels/bucket/bucket.py:93", bk["launches"][0],
+               lvl_rows["B3 uniform"]["max_abs_err"], bk["path"]),
+         "path_operands": {k: bk["path"][k] for k in bk["path"] if k not in keys},
+         "uniform": lvl_rows["B3 uniform"], "worst": lvl_rows["B3 worst"]},
         row("B4 bucket_maxmin", "bucket", "src/repro/kernels/bucket/bucket.py:24",
             legacy["b4_launches"], lvl_rows["B4"]["max_abs_err"], lvl_rows["B4"]),
         {**row("B5 ell_gather_contract", "ell", "src/repro/kernels/ell/ell.py:39",
@@ -1325,7 +1348,7 @@ def bucket_phase(torch, queries, twin, n_slots: int, tag: str, device=None,
     lat = sorted(svc.stats["Q1"].latencies_us)
     if on_card:
         trace_window(torch, lambda: svc.ingest(Stream(tail)), len(tail),
-                     f"{tag}-trace", top=10)
+                     f"{tag}-trace", top=12)
     elif tail:
         svc.ingest(Stream(tail))
     launches = (b3.bucket_maxmin_fused.launches, b1.maxmin_matmul_fused.launches,
@@ -1401,25 +1424,133 @@ def bucket_phase(torch, queries, twin, n_slots: int, tag: str, device=None,
           f"finite bucket entries == the float twin's grid-mapped dist",
           flush=True)
     out = {"J": J, "launches": launches, "rounds": rounds}
+    path_ops = None
+    if on_card and not ell:
+        # B3's operands in the run's last round: the final dist gathered per
+        # transition row and the adjacency rows of their labels, encoded on
+        # the run's grid
+        btt, bk = bg.btt, BucketBackend(n_levels=BUCKET_LEVELS)
+        w_max = torch.tensor(bg.max_window, dtype=torch.float32, device=dev)
+        path_ops = (bk.encode(ex.dense_dist()[btt.qidx, :, :, btt.src].contiguous(),
+                              ex.arrays.now, w_max),
+                    bk.encode(ex.dense_adj()[btt.lab].contiguous(), ex.arrays.now, w_max))
     del svc, bg, ex, vb, dist_b
     if on_card:
+        torch.cuda.empty_cache()
+    if path_ops is not None:
+        out["path"] = b3_on_path_operands(torch, *path_ops, BUCKET_LEVELS + 1)
+        del path_ops
         torch.cuda.empty_cache()
     return out
 
 
-def bound_level_ms(j: int, m: int, k: int, n: int, t_levels: int):
-    """(bound in ms, "bytes" | "operations") of one level product: int32
-    inputs read once and the int32 output written once, against T boolean
-    products of 2*m*k*n int8 operations each on the tensor cores."""
+#: the tiles of B3's pre-pass flags: a's (64 x 64), b's (64 x 128)
+B3_A_TILE, B3_B_TILE = (64, 64), (64, 128)
+
+
+def b3_steps(torch, a, b, t_levels: int):
+    """B3's (warp, k tile, threshold) steps on these operands and their
+    share of every step a product without skipping would run, from the
+    measurement-only entry of bucket.cu that counts them (its launch is
+    not one of the wrapper's)."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.bucket import bucket as b3
+
+    fn = build.bind("bucket", "bucket_maxmin_fused_s32_steps",
+                    [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 5
+                    + [ctypes.c_void_p] * 2)
+    j, m, k = a.shape
+    n = b.shape[2]
+    nbytes = b3.scratch_bytes(j, m, k, n)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=a.device)
+    out = torch.empty((j, m, n), dtype=torch.int32, device=a.device)
+    count = torch.zeros(1, dtype=torch.int64, device=a.device)
+    if fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), scratch.data_ptr(), nbytes, j, m,
+          k, n, t_levels, count.data_ptr(), torch.cuda.current_stream().cuda_stream):
+        fail("the step-counting entry of B3 did not launch")
+    torch.cuda.synchronize()
+    steps = int(count.item())
+    warps = j * -(-m // B3_A_TILE[0]) * -(-n // B3_B_TILE[1]) * 4
+    return steps, steps / float(warps * -(-k // B3_A_TILE[1]) * max(t_levels, 1))
+
+
+def bound_level_data_ms(a, b, t_levels: int):
+    """(bound in ms, "bytes" | "operations") of one level product on these
+    inputs: the int32 inputs read once and the int32 output written once,
+    against the int8 operations the data needs, 2 per (j, i, k, n, theta)
+    with a[j, i, k] >= theta and b[j, k, n] >= theta, over 1979 TOP/s."""
+    j, m, k = a.shape
+    n = b.shape[2]
+    pairs = 0.0
+    for theta in range(1, t_levels + 1):
+        pairs += float(((a >= theta).sum(1).double() * (b >= theta).sum(2).double()).sum())
     t_bytes = 4 * (j * m * k + j * k * n + j * m * n) / PEAK_BYTES
-    t_ops = 2.0 * j * m * k * n * t_levels / PEAK_INT8_OPS
+    t_ops = 2.0 * pairs / PEAK_INT8_OPS
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def live_tile_share(torch, x, tile) -> float:
+    """Share of x's (J, R, C) tiles (the kernel's) holding a level above 0."""
+    j, r, c = x.shape
+    tr, tc = tile
+    pad = torch.nn.functional.pad((x > 0), (0, -c % tc, 0, -r % tr))
+    live = pad.view(j, pad.shape[1] // tr, tr, pad.shape[2] // tc, tc).any(4).any(2)
+    return float(live.float().mean())
+
+
+def b3_on_path_operands(torch, d_s, a_l, t_levels: int):
+    """After phase 10's dense run: B3 on its own last-round level operands
+    (J, N, N) x (J, N, N). torch.equal against the plain version; the share
+    of a's and b's pre-pass tiles above level 0 and of the (warp, k tile,
+    threshold) steps the product runs; CUDA-event times of B3, the plain
+    version and the 9-bmm yardstick beside the bound counted from these
+    inputs."""
+    from repro_torch.kernels.bucket import bucket as b3
+    from repro_torch.kernels.bucket.ref import bucket_maxmin_fused_ref
+
+    j, m, k = d_s.shape
+    n = a_l.shape[2]
+    out = b3.bucket_maxmin_fused(d_s, a_l, n_levels=t_levels)
+    if not torch.equal(out, bucket_maxmin_fused_ref(d_s, a_l, t_levels)):
+        fail("B3 differs from its plain version on phase 10's own operands")
+    if not torch.equal(out, bmm_yardstick(torch, d_s, a_l, t_levels)):
+        fail("the bmm yardstick differs from B3 on phase 10's own operands")
+    del out
+    steps, share = b3_steps(torch, d_s, a_l, t_levels)
+    row = timed(torch, lambda: b3.bucket_maxmin_fused(d_s, a_l, n_levels=t_levels),
+                lambda: bucket_maxmin_fused_ref(d_s, a_l, t_levels),
+                lambda: bmm_yardstick(torch, d_s, a_l, t_levels), 20, 1,
+                bound_level_data_ms(d_s, a_l, t_levels), [j, m, k, n, t_levels],
+                "B3 on phase 10's last-round operands")
+    row.update(live_a_tiles=live_tile_share(torch, d_s, B3_A_TILE),
+               live_b_tiles=live_tile_share(torch, a_l, B3_B_TILE),
+               steps=steps, steps_run=share)
+    print(f"[kernel] B3 on phase 10's last-round operands: {row['live_a_tiles']:.4f} of "
+          f"a's and {row['live_b_tiles']:.4f} of b's tiles above level 0, "
+          f"{share:.6f} of the (warp, k tile, theta) steps run ({steps}); "
+          "== plain (torch.equal)", flush=True)
+    return row
+
+
+def bmm_yardstick(torch, x, y, t_levels: int):
+    """The library yardstick of B3/B4, which the port never calls: T
+    ``torch.matmul`` calls on bf16 0/1 operands (exact: counts up to k stay
+    below 2^24 in the float32 accumulator), then the compare and sum."""
+    acc = torch.zeros(x.shape[:-1] + y.shape[-1:], dtype=torch.int32, device=x.device)
+    for theta in range(1, t_levels + 1):
+        acc += (torch.matmul((x >= theta).to(torch.bfloat16),
+                             (y >= theta).to(torch.bfloat16)) > 0.5).to(torch.int32)
+    return acc
 
 
 def level_kernels_phase(torch, gen, j_path: int, n: int, b5_rows):
     """Phase 11: B3, B4, B2 and B5-int32 against their plain versions on the
     test shapes and at the path's shapes, then timed beside the bound, the
     plain version and the library yardstick. Returns the JSON rows' data."""
+    import numpy as np
+
     from repro_torch.kernels.bucket import bucket as b3
     from repro_torch.kernels.bucket.ref import bucket_maxmin_fused_ref, bucket_maxmin_ref
     from repro_torch.kernels.ell import ell as b5
@@ -1456,6 +1587,26 @@ def level_kernels_phase(torch, gen, j_path: int, n: int, b5_rows):
              bucket_maxmin_fused_ref(a, b, t), f"B3 at {(j, m, k, nn, t)}")
         same(b3.bucket_maxmin(a[0].contiguous(), b[0].contiguous(), n_levels=t),
              bucket_maxmin_ref(a[0], b[0], t), f"B4 at {(m, k, nn, t)}")
+    # level operands shaped around B3's pre-pass tiles (tests/_torch_levels.py:
+    # whole tiles at level 0 in a, b or both, lone corner entries, the worst
+    # case, levels outside [0, T]) on ragged, skinny and long-k shapes, and
+    # T in {0, 1, 127} beside the path's 9
+    from _torch_levels import PATTERNS, level_operands
+
+    rng = np.random.default_rng(16)
+    n_patterns = 0
+    for pattern in PATTERNS:
+        for (j, m, k, nn) in B3_SHAPES:
+            for t in (t_lv, 0, 1, 127) if pattern in ("worst", "clamp") else (t_lv,):
+                a, b = (torch.from_numpy(x).cuda()
+                        for x in level_operands(rng, pattern, j, m, k, nn, t))
+                same(b3.bucket_maxmin_fused(a, b, n_levels=t),
+                     bucket_maxmin_fused_ref(a, b, t), f"B3 {pattern} at {(j, m, k, nn, t)}")
+                same(b3.bucket_maxmin(a[-1].contiguous(), b[-1].contiguous(), n_levels=t),
+                     bucket_maxmin_ref(a[-1], b[-1], t), f"B4 {pattern} at {(m, k, nn, t)}")
+                n_patterns += 1
+    print(f"[kernel] B3, B4 == plain (torch.equal) on {n_patterns} patterned level "
+          f"operands ({', '.join(PATTERNS)}) at {B3_SHAPES}", flush=True)
     for dtype in (torch.float32, torch.float16):
         for (m, k, nn) in SHAPES:
             a = torch.rand((m, k), generator=gen, device="cuda").to(dtype)
@@ -1483,31 +1634,42 @@ def level_kernels_phase(torch, gen, j_path: int, n: int, b5_rows):
     out = b3.bucket_maxmin_fused(a, b, n_levels=t_lv)
     same(out, bucket_maxmin_fused_ref(a, b, t_lv), f"B3 at J={j_path} N={n}")
 
-    def bmm_yardstick(x, y):
-        acc = torch.zeros(x.shape[:-1] + y.shape[-1:], dtype=torch.int32,
-                          device=x.device)
-        for theta in range(1, t_lv + 1):
-            acc += (torch.matmul((x >= theta).to(torch.bfloat16),
-                                 (y >= theta).to(torch.bfloat16)) > 0.5).to(torch.int32)
-        return acc
-
-    if not torch.equal(bmm_yardstick(a, b), out):
+    if not torch.equal(bmm_yardstick(torch, a, b, t_lv), out):
         fail("the bmm yardstick differs from B3")
     del out
-    rows["B3"] = timed(torch, lambda: b3.bucket_maxmin_fused(a, b, n_levels=t_lv),
-                       lambda: bucket_maxmin_fused_ref(a, b, t_lv),
-                       lambda: bmm_yardstick(a, b), 10, 2,
-                       bound_level_ms(j_path, n, n, n, t_lv),
-                       [j_path, n, n, n, t_lv], "B3")
+    # uniform levels, then the worst case, where every threshold of every k
+    # tile runs: a at T, b at T but for one level-0 column in every 32 (one
+    # in each warp tile, whose outputs stay at 0)
     a1, b1_ = a[0].contiguous(), b[0].contiguous()
+    for tag in ("uniform", "worst"):
+        if tag == "worst":
+            del a, b
+            torch.cuda.empty_cache()
+            a = torch.full((j_path, n, n), t_lv, dtype=torch.int32, device="cuda")
+            b = torch.full((j_path, n, n), t_lv, dtype=torch.int32, device="cuda")
+            b[:, :, ::32] = 0
+            out = b3.bucket_maxmin_fused(a, b, n_levels=t_lv)
+            same(out, bucket_maxmin_fused_ref(a, b, t_lv), f"B3 worst case at J={j_path} N={n}")
+            if not torch.equal(bmm_yardstick(torch, a, b, t_lv), out):
+                fail("the bmm yardstick differs from B3 on the worst case")
+            del out
+        row = timed(torch, lambda: b3.bucket_maxmin_fused(a, b, n_levels=t_lv),
+                    lambda: bucket_maxmin_fused_ref(a, b, t_lv),
+                    lambda: bmm_yardstick(torch, a, b, t_lv), 10, 2,
+                    bound_level_data_ms(a, b, t_lv), [j_path, n, n, n, t_lv], f"B3 {tag}")
+        row["steps"], row["steps_run"] = b3_steps(torch, a, b, t_lv)
+        print(f"[kernel] B3 {tag}: {row['steps_run']:.4f} of the (warp, k tile, theta) "
+              f"steps run ({row['steps']})", flush=True)
+        rows[f"B3 {tag}"] = row
     del a, b
     torch.cuda.empty_cache()
     same(b3.bucket_maxmin(a1, b1_, n_levels=t_lv), bucket_maxmin_ref(a1, b1_, t_lv),
          f"B4 at {n}^3")
     rows["B4"] = timed(torch, lambda: b3.bucket_maxmin(a1, b1_, n_levels=t_lv),
                        lambda: bucket_maxmin_ref(a1, b1_, t_lv),
-                       lambda: bmm_yardstick(a1, b1_), 20, 5,
-                       bound_level_ms(1, n, n, n, t_lv), [n, n, n, t_lv], "B4")
+                       lambda: bmm_yardstick(torch, a1, b1_, t_lv), 20, 5,
+                       bound_level_data_ms(a1[None], b1_[None], t_lv), [n, n, n, t_lv],
+                       "B4")
     # B2 at (N, N) x (N, N) float32
     x = torch.rand((n, n), generator=gen, device="cuda") * 1000.0
     y = torch.rand((n, n), generator=gen, device="cuda") * 1000.0
@@ -1543,7 +1705,9 @@ def level_kernels_phase(torch, gen, j_path: int, n: int, b5_rows):
     del d, idx, ts, x, y, a1, b1_
     torch.cuda.empty_cache()
     for key, err in errs.items():
-        rows[key]["max_abs_err"] = err
+        for name in rows:
+            if name.split()[0] == key:
+                rows[name]["max_abs_err"] = err
     return rows
 
 

@@ -6,10 +6,11 @@
 the counterpart of ``repro.kernels.bucket.bucket.bucket_maxmin_fused``;
 ``bucket_maxmin`` (B4) takes the single pair (m, k) x (k, n), the
 counterpart of ``bucket_maxmin``. On a CUDA tensor each launches the
-hand-written Hopper kernel in ``repro_torch/csrc/bucket.cu`` (int8 tensor
-cores, built by nvcc at first use) or raises; each takes the plain
-PyTorch version only for tensors that lie on the CPU. There is no
-fallback from the card to the plain version.
+hand-written Hopper kernels in ``repro_torch/csrc/bucket.cu`` (built by
+nvcc at first use: a level pre-pass, then the int8 tensor-core product
+over the k tiles and thresholds that can raise an output) or raises; each
+takes the plain PyTorch version only for tensors that lie on the CPU.
+There is no fallback from the card to the plain version.
 """
 from __future__ import annotations
 
@@ -23,16 +24,26 @@ from .ref import bucket_maxmin_fused_ref, bucket_maxmin_ref
 #: levels are staged as int8 in the kernel
 MAX_LEVELS = 127
 
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: the C entries: a, b, out, scratch, scratch bytes, (J,) m, k, n, T, stream
 _ARGTYPES = {
-    "bucket_maxmin_fused_s32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-    + [ctypes.c_void_p],
-    "bucket_maxmin_s32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-    + [ctypes.c_void_p],
+    "bucket_maxmin_fused_s32": [_P] * 4 + [_LL] + [_I] * 5 + [_P],
+    "bucket_maxmin_s32": [_P] * 4 + [_LL] + [_I] * 4 + [_P],
 }
 
 
 def _kernel(name: str):
     return bind("bucket", name, _ARGTYPES[name])
+
+
+def scratch_bytes(j: int, m: int, k: int, n: int) -> int:
+    """Bytes of the scratch one launch needs: the pre-pass's tile flags
+    and the operands narrowed to int8 (it writes every byte, so the
+    scratch needs no fill)."""
+    nbytes = bind("bucket", "bucket_scratch_bytes", [_I] * 4, _LL)(j, m, k, n)
+    if nbytes < 0:
+        raise ValueError(f"bucket.cu refuses the shape {(j, m, k, n)}")
+    return nbytes
 
 
 def _check_card(a: torch.Tensor, b: torch.Tensor, n_levels: int, what: str) -> None:
@@ -48,8 +59,16 @@ def _check_card(a: torch.Tensor, b: torch.Tensor, n_levels: int, what: str) -> N
                          f"got {n_levels}")
 
 
-def _launch(fn, a, out, *args) -> None:
-    err = call_on(a, fn, *args)
+def _launch(a, b, out, j: int, m: int, k: int, n: int, n_levels: int,
+            single_pair: bool) -> None:
+    """The pre-pass and the product on a's device and current stream, with
+    the scratch in memory from PyTorch's allocator."""
+    nbytes = scratch_bytes(j, m, k, n)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=a.device)
+    name, dims = (("bucket_maxmin_s32", (m, k, n)) if single_pair
+                  else ("bucket_maxmin_fused_s32", (j, m, k, n)))
+    err = call_on(a, _kernel(name), a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                  scratch.data_ptr(), nbytes, *dims, n_levels)
     if err != 0:
         raise RuntimeError(f"bucket kernel launch failed: CUDA error {err}")
 
@@ -78,8 +97,7 @@ def bucket_maxmin_fused(a_lvl: torch.Tensor, b_lvl: torch.Tensor, *,
     if j == 0 or m == 0 or n == 0 or k == 0:
         return torch.zeros((j, m, n), dtype=torch.int32, device=a_lvl.device)
     out = torch.empty((j, m, n), dtype=torch.int32, device=a_lvl.device)
-    _launch(_kernel("bucket_maxmin_fused_s32"), a_lvl, out, a_lvl.data_ptr(),
-            b_lvl.data_ptr(), out.data_ptr(), j, m, k, n, n_levels)
+    _launch(a_lvl, b_lvl, out, j, m, k, n, n_levels, single_pair=False)
     bucket_maxmin_fused.launches += 1
     return out
 
@@ -109,8 +127,7 @@ def bucket_maxmin(a_lvl: torch.Tensor, b_lvl: torch.Tensor, *,
     if m == 0 or n == 0 or k == 0:
         return torch.zeros((m, n), dtype=torch.int32, device=a_lvl.device)
     out = torch.empty((m, n), dtype=torch.int32, device=a_lvl.device)
-    _launch(_kernel("bucket_maxmin_s32"), a_lvl, out, a_lvl.data_ptr(),
-            b_lvl.data_ptr(), out.data_ptr(), m, k, n, n_levels)
+    _launch(a_lvl, b_lvl, out, 1, m, k, n, n_levels, single_pair=True)
     bucket_maxmin.launches += 1
     return out
 

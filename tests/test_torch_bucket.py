@@ -37,6 +37,9 @@ from repro_torch.kernels.ell.ref import ell_gather_contract_naive, ell_gather_co
 from repro_torch.streaming.service import PersistentQueryService
 from repro_torch.streaming.stream import SGT, Stream
 
+from _torch_levels import PATTERNS as LEVEL_PATTERNS
+from _torch_levels import level_operands
+
 # tests/test_kernels.py: BUCKET_SHAPES (m, k, n, T), plus odd shapes: m=1,
 # k or n not a multiple of 8, T=1
 BUCKET_SHAPES = [(16, 16, 16, 4), (128, 128, 128, 8), (70, 200, 90, 3),
@@ -69,22 +72,46 @@ def test_plain_b4_matches_pallas_and_exact(m, k, n, T):
     assert b3.bucket_maxmin.launches == before
 
 
+def _plain_b3_equals_jax_and_exact(a, b, t, jax_too=True):
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    out = bucket_maxmin_fused_ref(ta, tb, t)
+    if jax_too:
+        kern = np.asarray(jax_b3(jnp.asarray(a), jnp.asarray(b), n_levels=t,
+                                 interpret=True))
+        np.testing.assert_array_equal(out.numpy(), kern)
+    # the direct max-min on the clamped levels
+    assert torch.equal(bucket_maxmin_exact(ta.clamp(0, t), tb.clamp(0, t)), out)
+    before = b3.bucket_maxmin_fused.launches
+    assert torch.equal(b3.bucket_maxmin_fused(ta, tb, n_levels=t), out)
+    assert b3.bucket_maxmin_fused.launches == before
+
+
 @pytest.mark.parametrize("J", [1, 3])
 @pytest.mark.parametrize("m,k,n,T", [(16, 16, 16, 4), (70, 200, 90, 3),
                                      (1, 7, 5, 1), (9, 33, 30, 9)])
 def test_plain_b3_matches_pallas_and_exact(J, m, k, n, T):
+    """Uniform levels with all-zero rows, then each pattern of
+    tests/_torch_levels.py (whole tiles of the CUDA kernel at level 0,
+    lone corner entries, the worst case, levels outside [0, T]) at the same
+    shape, so the plain version the card kernel is held to is itself held
+    to the JAX kernel in each regime."""
     rng = np.random.default_rng(J * 100 + m + k + n + T)
     a, b = _levels(rng, (J, m, k), T), _levels(rng, (J, k, n), T)
     a[:, : max(1, m // 5)] = 0                # all-zero rows
-    kern = np.asarray(jax_b3(jnp.asarray(a), jnp.asarray(b), n_levels=T,
-                             interpret=True))
-    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
-    out = bucket_maxmin_fused_ref(ta, tb, T)
-    np.testing.assert_array_equal(out.numpy(), kern)
-    assert torch.equal(bucket_maxmin_exact(ta, tb), out)
-    before = b3.bucket_maxmin_fused.launches
-    assert torch.equal(b3.bucket_maxmin_fused(ta, tb, n_levels=T), out)
-    assert b3.bucket_maxmin_fused.launches == before
+    _plain_b3_equals_jax_and_exact(a, b, T)
+    for pattern in LEVEL_PATTERNS:
+        _plain_b3_equals_jax_and_exact(*level_operands(rng, pattern, J, m, k, n, T), T)
+
+
+@pytest.mark.parametrize("T", [0, 1, 9, 127])
+def test_plain_b3_at_every_threshold_count(T):
+    """T = 0 (every output 0), 1, 9 (the service's) and 127 (the kernel's
+    largest) on clamped and worst-case levels against the direct max-min;
+    against the JAX kernel too where it takes T (it allocates T counts)."""
+    rng = np.random.default_rng(T)
+    for pattern in ("clamp", "worst", "corners"):
+        a, b = level_operands(rng, pattern, 2, 70, 130, 40, T)
+        _plain_b3_equals_jax_and_exact(a, b, T, jax_too=T in (1, 9))
 
 
 def test_bucket_wrappers_validate():

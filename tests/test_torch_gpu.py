@@ -28,6 +28,9 @@ from repro_torch.kernels.rowsparse import rowsparse as b6
 from repro_torch.kernels.rowsparse.ref import rowsparse_gather_ref
 from repro_torch.streaming.generators import so_like, with_deletions
 
+from _torch_levels import PATTERNS as LEVEL_PATTERNS
+from _torch_levels import level_operands
+
 pytestmark = pytest.mark.gpu
 
 CASES = [(1, 8, 8, 8), (1, 128, 128, 128), (1, 130, 70, 200), (1, 1, 256, 33),
@@ -457,6 +460,63 @@ def test_bucket_kernels_refuse_bad_operands(cuda):
         b3.bucket_maxmin_fused(a.transpose(1, 2), a, n_levels=9)
     with pytest.raises(ValueError, match="n_levels"):
         b3.bucket_maxmin(a[0], a[0], n_levels=128)
+
+
+# B3/B4 on level operands shaped around the kernel's tiles
+# (tests/_torch_levels.py: whole tiles at level 0 in a, b or both, lone
+# corner entries, the worst case, the clamp); ragged m, k, n (k % 4 and
+# n % 4 not 0: the pre-pass's 4-byte loads), the frontier's skinny
+# m in {4, 32}, and k past 128 k tiles (the product lists k tiles 128 at a
+# time)
+B3_SHAPES = [(2, 300, 260, 270), (1, 64, 128, 128), (3, 4, 1000, 300),
+             (2, 32, 1000, 512), (2, 257, 49, 131), (1, 130, 70, 30),
+             (1, 40, 8325, 70)]
+
+
+def _b3_b4_equal_plain(cuda, a_np, b_np, t):
+    a, b = torch.from_numpy(a_np).to(cuda), torch.from_numpy(b_np).to(cuda)
+    before = (b3.bucket_maxmin_fused.launches, b3.bucket_maxmin.launches)
+    out = b3.bucket_maxmin_fused(a, b, n_levels=t)
+    pair = b3.bucket_maxmin(a[-1].contiguous(), b[-1].contiguous(), n_levels=t)
+    torch.cuda.synchronize()
+    assert (b3.bucket_maxmin_fused.launches, b3.bucket_maxmin.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(out, bucket_maxmin_fused_ref(a, b, t))
+    assert torch.equal(pair, bucket_maxmin_ref(a[-1], b[-1], t))
+
+
+@pytest.mark.parametrize("J,m,k,n", B3_SHAPES)
+@pytest.mark.parametrize("pattern", LEVEL_PATTERNS)
+def test_b3_b4_on_level_patterns(cuda, pattern, J, m, k, n):
+    """B3 and B4 (pre-pass and product) equal their plain versions where
+    the pre-pass flags whole tiles at level 0 and the product skips k
+    tiles and thresholds, and where nothing can be skipped."""
+    rng = np.random.default_rng(J * 1000 + m + k + n + len(pattern))
+    _b3_b4_equal_plain(cuda, *level_operands(rng, pattern, J, m, k, n, 9), 9)
+
+
+@pytest.mark.parametrize("T", [0, 1, 9, 127])
+@pytest.mark.parametrize("pattern", ["uniform", "corners", "worst", "clamp"])
+def test_b3_b4_at_every_threshold_count(cuda, pattern, T):
+    rng = np.random.default_rng(T + len(pattern))
+    _b3_b4_equal_plain(cuda, *level_operands(rng, pattern, 2, 130, 300, 200, T), T)
+
+
+def test_b3_on_misaligned_views(cuda):
+    """Contiguous operands whose base is not 16-byte aligned (a view one
+    element into its storage) take the pre-pass's 4-byte loads; the
+    output's base is the allocator's."""
+    rng = np.random.default_rng(12)
+    a_np, b_np = level_operands(rng, "uniform", 2, 64, 128, 96, 9)
+    base_a = torch.zeros(a_np.size + 1, dtype=torch.int32, device=cuda)
+    base_b = torch.zeros(b_np.size + 1, dtype=torch.int32, device=cuda)
+    base_a[1:] = torch.from_numpy(a_np.ravel()).to(cuda)
+    base_b[1:] = torch.from_numpy(b_np.ravel()).to(cuda)
+    a, b = base_a[1:].view(a_np.shape), base_b[1:].view(b_np.shape)
+    assert a.is_contiguous() and a.data_ptr() % 16 != 0
+    out = b3.bucket_maxmin_fused(a, b, n_levels=9)
+    torch.cuda.synchronize()
+    assert torch.equal(out, bucket_maxmin_fused_ref(a, b, 9))
 
 
 @pytest.mark.parametrize("J,M,U,E", B5_CASES)
