@@ -15,7 +15,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 3. kernel: B1, B5 and B6 against their plain PyTorch versions on the card
    with ``torch.equal`` (tolerance 0: max and min never reassociate) on
    the test shapes (B1 also in float16 and on block-sparse operands whose
-   whole kernel tiles are -inf, which its occupancy pre-pass lets it skip),
+   whole kernel tiles are -inf, which its occupancy pre-pass lets it skip;
+   B5 through both entries: on pre-gathered rows, and whole, on ELL
+   leaves of 3 labels with int32 and int64 labels and a full 64-entry
+   ring with out-of-range entries, also at U beyond one block's shared
+   memory, one launch a call),
    B1 at the dense path's shape and at the frontier's skinny (J=48, m in
    {4, 32}, 2048, 2048) slabs; the min/max instruction-rate microbenchmark
    (FFMA, FMNMX, the two-input integer min/max and the DPX
@@ -52,17 +56,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``so_like(n_vertices=8192, rate=50)`` (about 1000 live edges in a 20 s
    window) with 2% deletions, B=1. Asserts every query's results and
    per-event result log equal its reference engine's, that B5 was
-   launched once per closure round
-   and B1 never, that the frontier ran and also fell back (dispatches >
-   fallbacks >= 1), that a delete went through the cone, and that the
+   launched exactly as often as the executor's ELL contractions (one per
+   frontier round, one per J chunk of a dense round) and B1 and B5's
+   gather-contract entry never, that the frontier ran and also fell back
+   (dispatches > fallbacks >= 1), that a delete went through the cone, and that the
    spill ring drained and re-packed.
 7. B5 at the path's shapes: on this run's final operands (the gathered
-   dist rows and the ELL rows of the transition labels), ``torch.equal``
-   against the plain version at the frontier's (J, F, 8192, E) and the
-   dense round's (J, 8192, 8192, E), and CUDA-event times beside the
-   bound, the plain version and the two-call PyTorch yardstick
-   (``torch.minimum`` of the broadcast candidates, then one
-   ``scatter_reduce_(..., "amax")``), which the port never calls.
+   dist rows, the ELL adjacency's own leaves and ring, the transition
+   labels), both entries ``torch.equal`` to their plain versions at the
+   frontier's (J, F, 8192, E) and the dense round's (J, 8192, 8192, E);
+   the whole entry's device time (CUDA-graph replay at the frontier's
+   shape), its time per call with the host's enqueue and the wrapper's
+   host time beside the recounted bound, the plain version, the PyTorch
+   yardstick (``torch.minimum`` of the slot candidates, a
+   ``scatter_reduce_(..., "amax")``, then the same for the ring's), which
+   the port never calls, the whole ``contract_rows_ell`` call and the
+   gather-contract entry; the same on the int32 entry at the dense
+   round's shape.
 8. end to end, row-sparse dist: phase 6's service and stream again with
    ``dist_layout="row_sparse", dist_cap=4`` (rows overflow into the
    table, drains grow and re-pack). Asserts every query's per-event result
@@ -70,7 +80,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    frontier dispatches and fallbacks as phase 6 (at least one: the densify
    round trip runs), at least one drain and one re-pack with nothing lost,
    B6 launched once per frontier insert dispatch that did not fall back,
-   B5 once per closure round and B1 never.
+   B5 as often as the executor's ELL contractions and B1 never; the
+   device operations a dispatch in its traced window.
 9. B6 at the path's shapes: on phase 8's final state (the Q*F slot rows
    with the most entries, E = N*K) and at a synthetic M=4096, C=64,
    E=32768, ``torch.equal`` against the plain version; device times (the
@@ -94,9 +105,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and that the bucket dist equals the twin's dist mapped through the
    level grid (the origin-free guard); that on the dense adjacency B3 ran
    once per bucket closure round (B1, B5 and B6 never), and on phase 8's
-   ELL adjacency and row-sparse dist B5's int32 entry ran once per round
-   and B6 once per frontier insert that did not fall back (B1 and B3
-   never). Each
+   ELL adjacency and row-sparse dist B5's int32 entry ran once per
+   frontier round and once per J chunk of a dense round (the executor's
+   ELL contractions) and B6 once per frontier insert that did not fall
+   back (B1 and B3 never). Each
    run's last window (the twin's traced sgts) runs under
    ``torch.profiler``: its top device kernels. After the dense run, B3 on
    that run's own last-round level operands (the final dist gathered per
@@ -113,9 +125,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    entries, the worst case, the clamp; T in {0, 1, 9, 127}) at ragged,
    skinny and long-k shapes, and at the path's shapes (B3 at (J, 2048,
    2048, 2048, T=9) and at the frontier's m in {4, 32}; B2 and B4 at
-   2048^3; B5-int32 at phase 6's frontier shape, on phase 6's operands
-   encoded to levels); CUDA-event times beside the bound (the larger of
-   bytes over 3.35 TB/s and, for B3/B4, the int8 operations the data
+   2048^3; B5-int32 through both entries, the whole one also with a full
+   ring and at U beyond one block's shared memory, and at phase 6's
+   frontier shape, on phase 6's operands and ELL adjacency encoded to
+   levels, where it is timed like phase 7); CUDA-event times beside the
+   bound (the larger of bytes over 3.35 TB/s and, for B3/B4, the int8 operations the data
    needs, 2 per (j, i, k, n, theta) with both levels >= theta, over 1979
    TOP/s), the plain version and the library yardstick (T
    ``torch.bmm`` calls on bf16 0/1 operands, then the compare and sum),
@@ -163,6 +177,9 @@ ODD_SHAPES = [(3, 4, 40, 40), (5, 16, 33, 33), (2, 1, 7, 19), (7, 23, 5, 64),
 # tests/test_torch_gpu.py: B5_CASES (J, M, U, E), B6_CASES (M, C, E, keys)
 B5_CASES = [(2, 5, 12, 3), (1, 1, 9, 1), (3, 7, 13, 2), (4, 16, 33, 4),
             (1, 130, 257, 8), (48, 4, 2048, 2), (6, 300, 700, 5)]
+# tests/test_torch_gpu.py: B5_WIDE, a row wider than one block's shared
+# memory (the kernel splits its columns), aligned and ragged
+B5_WIDE = [(1, 2, 70000, 3), (1, 2, 70001, 2)]
 B6_CASES = [(12, 4, 30, "random"), (5, 1, 33, "random"), (9, 16, 257, "random"),
             (7, 8, 40, "random"), (3, 64, 100, "random"), (40, 256, 4097, "random"),
             (17, 128, 2049, "random"), (192, 4, 32768, "random"),
@@ -247,21 +264,58 @@ def bound_ms(j: int, m: int, k: int, n: int, itemsize: int = 4):
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def bound_ell_ms(j: int, m: int, u: int, e: int, live_candidates: int):
-    """(bound in ms, "bytes" | "operations") of one ELL gather-contract:
-    d (J, M, U) read and the (J, M, U) output written once, idx/ts
-    (J, U, E) read once, against one min and one max per candidate that
-    this run's data holds (finite d entries times E slots)."""
-    t_bytes = (4 * (j * m * u + j * m * u) + 8 * j * u * e) / PEAK_BYTES
+def bound_ell_ms(j: int, m: int, u: int, e: int, live_candidates: int,
+                 n_labels: int, ring: int):
+    """(bound in ms, "bytes" | "operations") of one ELL contraction with
+    the label gather and the ring folded in: d (J, M, U) read and the
+    (J, M, U) output written once, the (L, U, E) ELL leaves (int32 index,
+    4-byte timestamp) and the ring's four (S,) leaves read once, against
+    one min and one max per candidate that this run's data holds (finite
+    d entries times E slots)."""
+    t_bytes = (4 * 2 * j * m * u + 8 * n_labels * u * e + 16 * ring) / PEAK_BYTES
     t_ops = 2.0 * live_candidates / PEAK_F32_OPS
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def trace_window(torch, run, n_sgts: int, tag: str, top: int = 6) -> None:
+def b5_rows_operands(torch, gen, j: int, m: int, u: int, e: int, levels: bool = False):
+    """Random operands of B5's whole entry on the card: d (J, M, U) with 40%
+    live entries, ELL leaves of 3 labels (duplicate destinations, all-free
+    rows), int32 labels that repeat, and a 64-entry ring whose every entry
+    is live: on all labels, one a copy of a row edge, two with dst outside
+    [0, U) and one with src outside it (dropped). ``levels``: int32 levels
+    1..10 with level 0 for -inf."""
+    n_labels, s = 3, 64
+
+    def ts_of(shape, density):
+        x = torch.rand(shape, generator=gen, device="cuda") * 1000.0
+        x[torch.rand(shape, generator=gen, device="cuda") > density] = float("-inf")
+        if levels:
+            x = torch.where(x > float("-inf"), x / 100.0 + 1.0, 0.0).to(torch.int32)
+        return x
+
+    d = ts_of((j, m, u), 0.4)
+    idx = torch.randint(0, u, (n_labels, u, e), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    idx[:, :, 0] = idx[:, :, -1]                  # duplicate destinations
+    ts = ts_of((n_labels, u, e), 0.6)
+    ts[:, : max(1, u // 7)] = 0 if levels else float("-inf")   # all-free rows
+    labs = torch.randint(0, n_labels, (j,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    src, dst = (torch.randint(0, u, (s,), generator=gen, device="cuda",
+                              dtype=torch.int32) for _ in range(2))
+    lab = torch.arange(s, device="cuda", dtype=torch.int32) % n_labels
+    sts = ts_of((s,), 1.0)
+    src[0], dst[0], lab[0] = 0, idx[0, 0, 0], 0   # a ring copy of a row edge
+    dst[1], dst[2], src[3] = u, u + 9, u          # outside [0, U): dropped
+    return d, idx, ts, labs, (src, dst, lab, sts)
+
+
+def trace_window(torch, run, n_sgts: int, tag: str, top: int = 6) -> int:
     """Run ``run()`` under ``torch.profiler`` (device activity only:
     recording every CPU-side op of the host loop tripled the window's wall
     time) and print the top device kernels by self device time, with the
-    window's total device time and wall time."""
+    window's total device time and wall time. Returns the number of device
+    operations (kernels, copies, fills) the window ran."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -279,12 +333,15 @@ def trace_window(torch, run, n_sgts: int, tag: str, top: int = 6) -> None:
         if dev_us > 0:
             by_name[ev.key] = by_name.get(ev.key, 0.0) + dev_us
     total = sum(by_name.values()) / 1e3
+    n_ops = sum(ev.count for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA)
     print(f"[{tag}] top device kernels over {n_sgts} traced sgts"
           f"{'' if by_name else ': the profiler recorded no device time'}; "
           f"device time {total:.3f} ms in {wall * 1e3:.3f} ms traced wall",
           flush=True)
     for key, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"[{tag}]   {us / 1e3:10.3f} ms  {key[:90]}", flush=True)
+    return n_ops
 
 
 def by_event(log):
@@ -594,7 +651,7 @@ def main() -> None:
     from repro_torch.core.automaton import compile_query
     from repro_torch.kernels import build
     from repro_torch.kernels.ell import ell as b5
-    from repro_torch.kernels.ell.ref import ell_gather_contract_ref
+    from repro_torch.kernels.ell.ref import ell_contract_rows_ref, ell_gather_contract_ref
     from repro_torch.kernels.maxmin import maxmin as b1
     from repro_torch.kernels.maxmin.ref import maxmin_matmul_fused_ref
     from repro_torch.kernels.rowsparse import rowsparse as b6
@@ -689,6 +746,33 @@ def main() -> None:
         check_b5(d, idx, ts, f"J={j} M={m} U={u} E={e}")
     print(f"[kernel] B5 == plain (torch.equal) on {len(B5_CASES)} test shapes",
           flush=True)
+
+    def check_b5_rows(d, idx, ts, labs, ring, what: str) -> None:
+        """B5's whole entry (the label gather and the ring folded in)
+        against its plain version: one launch, ``torch.equal``."""
+        nonlocal ell_err
+        before = b5.ell_contract_rows.launches
+        out = b5.ell_contract_rows(d, idx, ts, labs, *ring)
+        torch.cuda.synchronize()
+        if b5.ell_contract_rows.launches != before + 1:
+            fail(f"B5's whole entry did not launch once at {what}")
+        zero = 0 if d.dtype == torch.int32 else float("-inf")
+        ref = ell_contract_rows_ref(d, idx, ts, labs, *ring, zero=zero)
+        if not torch.equal(out, ref):   # equal means max |err| 0.0 exactly
+            err = (out.float() - ref.float()).abs().masked_fill(out == ref, 0.0)
+            ell_err = max(ell_err, float(err.max()))
+            fail(f"B5's whole entry differs from its plain version at {what}: "
+                 f"max |err| {ell_err}")
+
+    for (j, m, u, e) in B5_CASES + B5_WIDE:
+        d, idx, ts, labs, ring = b5_rows_operands(torch, gen, j, m, u, e)
+        for lab_t in (labs, labs.long()):
+            check_b5_rows(d, idx, ts, lab_t, ring,
+                          f"J={j} M={m} U={u} E={e} {lab_t.dtype} labels, full ring")
+    print(f"[kernel] B5's whole entry (ELL leaves of 3 labels, a full 64-entry "
+          f"ring with out-of-range entries, int32 and int64 labels) == plain "
+          f"(torch.equal) on {len(B5_CASES)} test shapes and at U beyond one "
+          f"block's shared memory {B5_WIDE}", flush=True)
 
     rs_err = 0.0
 
@@ -873,7 +957,7 @@ def main() -> None:
     ell = ell_phase(torch, queries, args.ell_inserts, device=None)
 
     # -- 7. B5 at the path's shapes, on this run's operands ---------------------
-    b5_rows = b5_at_path_shapes(torch, ell, check_b5)
+    b5_rows = b5_at_path_shapes(torch, ell, check_b5, check_b5_rows)
     print(f"[kernel] B5 == plain (torch.equal) on every shape; max |err| "
           f"{ell_err}", flush=True)
 
@@ -898,7 +982,7 @@ def main() -> None:
     # -- 12. the legacy single-query round --------------------------------------
     legacy = legacy_phase(torch, queries["Q1"], legacy_in, device=None)
 
-    e5, b6p = b5_rows["dense"], b6_rows["path"]
+    e5, b6p = b5_rows["frontier"], b6_rows["path"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
 
     def row(name, src, replaces, launches, err, data):
@@ -932,13 +1016,18 @@ def main() -> None:
          "uniform": lvl_rows["B3 uniform"], "worst": lvl_rows["B3 worst"]},
         row("B4 bucket_maxmin", "bucket", "src/repro/kernels/bucket/bucket.py:24",
             legacy["b4_launches"], lvl_rows["B4"]["max_abs_err"], lvl_rows["B4"]),
-        {**row("B5 ell_gather_contract", "ell", "src/repro/kernels/ell/ell.py:39",
+        # B5's numbers are its whole entry's at the frontier's shape on
+        # phase 6's operands (ms the device time); the per-call times, the
+        # whole backend call and the dense round's shape ride along
+        {**row("B5 ell_contract_rows", "ell", "src/repro/kernels/ell/ell.py:39",
                ell["launches"], ell_err, e5),
+         "frontier": {k: e5[k] for k in e5 if k not in keys},
+         "dense": b5_rows["dense"],
          # the int32 entry (bucket levels): its launches in phase 10's
-         # ELL + row-sparse run, every one of that run's rounds
+         # ELL + row-sparse run, one per frontier round and per dense chunk
          "s32": {"launches": bk_rs["launches"][2],
                  "max_abs_err": lvl_rows["B5-int32"]["max_abs_err"],
-                 **{k: lvl_rows["B5-int32"][k] for k in keys}}},
+                 **lvl_rows["B5-int32"]}},
         {**row("B6 rowsparse_gather", "rowsparse",
                "src/repro/kernels/rowsparse/rowsparse.py:40", rs["b6_launches"],
                rs_err, b6p),
@@ -962,6 +1051,7 @@ def ell_phase(torch, queries, n_inserts: int, device=None, n_slots: int = ELL_SL
     ``n_slots`` let the same code rehearse on the CPU at a small size; the
     script itself runs it on the card at 8192. Returns the run's result
     logs and counts, and its final operands for phase 7 or 9."""
+    from repro_torch.core.semiring import ell_round_chunk
     from repro_torch.kernels.ell import ell as b5
     from repro_torch.kernels.maxmin import maxmin as b1
     from repro_torch.kernels.rowsparse import rowsparse as b6
@@ -1000,7 +1090,9 @@ def ell_phase(torch, queries, n_inserts: int, device=None, n_slots: int = ELL_SL
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+    contractions0 = ex.ell_contractions_total
     b1.maxmin_matmul_fused.launches = 0
+    b5.ell_contract_rows.launches = 0
     b5.ell_gather_contract.launches = 0
     b6.rowsparse_gather.launches = 0
     t0 = time.perf_counter()
@@ -1008,9 +1100,11 @@ def ell_phase(torch, queries, n_inserts: int, device=None, n_slots: int = ELL_SL
     if on_card:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = b5.ell_gather_contract.launches
+    launches = b5.ell_contract_rows.launches
+    gathers = b5.ell_gather_contract.launches
     b1_launches = b1.maxmin_matmul_fused.launches
     b6_launches = b6.rowsparse_gather.launches
+    contractions = ex.ell_contractions_total - contractions0
     rounds = ex.rounds_total - rounds0
     steps = ex.steps - steps0
     syncs = group.host_syncs - syncs0
@@ -1023,10 +1117,13 @@ def ell_phase(torch, queries, n_inserts: int, device=None, n_slots: int = ELL_SL
     logs = {name: list(group.per_query_log[group.lane_of(name)])
             for name in queries}
 
-    if b1_launches:
-        fail(f"kernel B1 ran {b1_launches} times on the {tag} path")
-    if on_card and (launches <= 0 or launches != rounds):
-        fail(f"B5 launches ({launches}) != closure rounds run ({rounds})")
+    if b1_launches or gathers:
+        fail(f"kernel B1 ran {b1_launches} times and B5's gather-contract entry "
+             f"{gathers} times on the {tag} path")
+    # one launch per frontier round, one per J chunk of a dense round
+    if on_card and not (0 < rounds <= launches == contractions):
+        fail(f"B5 launches ({launches}) != the executor's ELL contractions "
+             f"({contractions}) over {rounds} closure rounds")
     mismatched = [name for name in queries
                   if svc.results(name) != svc.results(f"{name}_ref")
                   or by_event(logs[name])
@@ -1079,8 +1176,10 @@ def ell_phase(torch, queries, n_inserts: int, device=None, n_slots: int = ELL_SL
           flush=True)
     print(f"[{tag}] {steps} dispatches, {rounds} closure rounds ({rounds / steps:.3f} "
           f"per dispatch), host syncs {syncs / steps:.3f} per dispatch; B5 "
-          f"launches {launches} (one per round), B1 launches {b1_launches}, "
-          f"B6 launches {b6_launches}", flush=True)
+          f"launches {launches} == ELL contractions {contractions} (one per "
+          f"frontier round, one per J chunk of {ell_round_chunk(J, N)} rows of "
+          f"a dense round), B1 launches {b1_launches}, B6 launches "
+          f"{b6_launches}", flush=True)
     print(f"[{tag}] frontier: {fst['dispatches']} dispatches, {fst['fallbacks']} "
           f"dense fallbacks ({fst['delete_dispatches']} deletes, "
           f"{fst['delete_fallbacks']} of them fell back); rows relaxed "
@@ -1109,8 +1208,13 @@ def ell_phase(torch, queries, n_inserts: int, device=None, n_slots: int = ELL_SL
           flush=True)
 
     if on_card:
-        trace_window(torch, lambda: svc.ingest(Stream(tail), record_latency=True),
-                     len(tail), f"{tag}-trace", top=10)
+        steps0 = ex.steps
+        ops = trace_window(torch, lambda: svc.ingest(Stream(tail), record_latency=True),
+                           len(tail), f"{tag}-trace", top=10)
+        per = ops / max(ex.steps - steps0, 1)
+        print(f"[{tag}-trace] {ops} device operations (kernels, copies, fills) "
+              f"over {ex.steps - steps0} dispatches = {per:.3f} a dispatch",
+              flush=True)
 
     out = {"launches": launches, "b6_launches": b6_launches, "logs": logs,
            "invalidated": report.invalidated, "frontier": fst,
@@ -1131,12 +1235,11 @@ def ell_phase(torch, queries, n_inserts: int, device=None, n_slots: int = ELL_SL
                    sts=sd.ts.view(q * n, c).index_select(0, key).contiguous(),
                    e=n * sd.k)
     else:
-        # the final operands of a round, for phase 7
+        # the final operands of a round, for phase 7: the gathered dist rows,
+        # the ELL adjacency and the transition rows' labels
         btt = group.btt
-        labs = btt.lab
         out.update(d=a.dist[btt.qidx, :, :, btt.src].contiguous(),  # (J, N, N)
-                   idx=a.adj.idx[labs].contiguous(),
-                   ts=a.adj.ts[labs].contiguous())
+                   ell=a.adj, labs=btt.lab.clone())
     del svc, group, ex, a
     if on_card:
         torch.cuda.empty_cache()
@@ -1226,59 +1329,119 @@ def b6_at_path_shapes(torch, gen, rs, check_b6):
     return rows
 
 
-def b5_at_path_shapes(torch, ell, check_b5):
-    """Phase 7: B5 against its plain version and timed at the frontier's
-    (J, F, N, E) (the F rows of each transition's slab with the most
-    finite entries) and the dense round's (J, N, N, E), on phase 6's final
-    operands, beside the bound, the plain version and the two-call PyTorch
-    yardstick. Frees the operands."""
+def b5_timed(torch, tag: str, d, adj, labs, backend, reps: int, check_b5_rows,
+             check_b5=None):
+    """B5 on one of the path's operands: d (J, M, N) against the ELL
+    adjacency ``adj`` (its own leaves and ring) and the transition rows'
+    labels, float32 timestamps or int32 levels. Both entries
+    ``torch.equal`` to their plain versions (``check_b5_rows``,
+    ``check_b5``), and the whole entry to the PyTorch yardstick
+    (``minimum`` and ``scatter_reduce_(..., "amax")`` of the slot
+    candidates, then the same of the ring's; the port never calls it) and
+    to ``backend.contract_rows_ell``. Then the whole entry's device time
+    (the median of CUDA-graph replays when ``reps`` > 3, else CUDA events
+    around back-to-back calls), its time per call with the host's enqueue
+    and the wrapper's host time, beside the recounted bound, the plain
+    version, the yardstick, the whole backend call and the gather-contract
+    entry on pre-gathered rows. Returns the row's numbers."""
     from repro_torch.kernels.ell import ell as b5
-    from repro_torch.kernels.ell.ref import ell_gather_contract_ref
+    from repro_torch.kernels.ell.ref import ell_contract_rows_ref
 
-    d, idx, ts = ell.pop("d"), ell.pop("idx"), ell.pop("ts")
+    j, m, n = d.shape
+    n_labels, _, e = adj.idx.shape
+    ring = (adj.spill_src, adj.spill_dst, adj.spill_lab, adj.spill_ts)
+    src, dst, rlab, sts = ring
+    zero = 0 if d.dtype == torch.int32 else float("-inf")
+    idx, ts = adj.idx[labs].contiguous(), adj.ts[labs].contiguous()  # gathered rows
+    what = f"the {tag} shape J={j} M={m} U={n} E={e}, L={n_labels}, ring {src.numel()}"
+    check_b5_rows(d, adj.idx, adj.ts, labs, ring, what)
+    if check_b5 is not None:
+        check_b5(d, idx, ts, what)
+    ring_ts = torch.where(rlab.long()[None] == labs[:, None], sts[None], zero)[:, None]
+
+    def yardstick():
+        out = torch.full(d.shape, zero, dtype=d.dtype, device=d.device)
+        out.scatter_reduce_(2, idx.long().reshape(j, 1, n * e).expand(-1, m, -1),
+                            torch.minimum(d[:, :, :, None], ts[:, None]).reshape(j, m, n * e),
+                            "amax", include_self=True)
+        return out.scatter_reduce_(2, dst.long()[None, None].expand(j, m, -1),
+                                   torch.minimum(d[:, :, src.long()], ring_ts),
+                                   "amax", include_self=True)
+
+    kernel = lambda: b5.ell_contract_rows(d, adj.idx, adj.ts, labs, *ring)
+    whole = lambda: backend.contract_rows_ell(d, adj, labs)
+    gather = lambda: b5.ell_gather_contract(d, idx, ts)
+    if not torch.equal(yardstick(), kernel()):
+        fail(f"the PyTorch yardstick differs from B5 at {what}")
+    if not torch.equal(whole(), kernel()):
+        fail(f"contract_rows_ell differs from B5's whole entry at {what}")
+    torch.cuda.synchronize()
+    if reps > 3:
+        ms, ms_each = graph_ms(torch, kernel, reps)
+        whole_ms, gather_ms = graph_ms(torch, whole, reps)[0], graph_ms(torch, gather, reps)[0]
+    else:
+        ms, ms_each = time_cuda(torch, kernel, reps), None
+        whole_ms, gather_ms = time_cuda(torch, whole, reps), time_cuda(torch, gather, reps)
+    cands = int((d > zero).sum()) * e
+    bms, by = bound_ell_ms(j, m, n, e, cands, n_labels, src.numel())
+    row = {"ms": ms, "plain_ms": time_cuda(torch, lambda: ell_contract_rows_ref(
+               d, adj.idx, adj.ts, labs, *ring, zero=zero), max(1, reps // 10)),
+           "library_ms": time_cuda(torch, yardstick, max(1, reps // 3)),
+           "bound_ms": bms, "bound_by": by, "shape": [j, m, n, e],
+           "n_labels": n_labels, "ring": src.numel(), "live_candidates": cands,
+           "ms_graph_replays": ms_each,
+           "ms_per_call_with_enqueue": time_cuda(torch, kernel, reps),
+           "host_us_per_call": host_us(torch, kernel, reps),
+           "contract_rows_ell_ms": whole_ms,
+           "contract_rows_ell_ms_per_call_with_enqueue": time_cuda(torch, whole, reps),
+           "contract_rows_ell_host_us_per_call": host_us(torch, whole, reps),
+           "gather_contract_entry_ms": gather_ms}
+    print(f"[kernel] B5{'-int32' if zero == 0 else ''} {tag} shape J={j} M={m} U={n} "
+          f"E={e}, L={n_labels}, ring {src.numel()} ({cands} live candidates): device "
+          f"{ms:.4f} ms{' (CUDA-graph replay)' if ms_each else ''}, bound {bms:.4f} ms "
+          f"({by}), {100 * bms / ms:.1f}% of bound; per call with the enqueue "
+          f"{row['ms_per_call_with_enqueue']:.4f} ms, wrapper host "
+          f"{row['host_us_per_call']:.1f} us; plain {row['plain_ms']:.3f} ms; yardstick "
+          f"{row['library_ms']:.3f} ms; the whole contract_rows_ell call: device "
+          f"{whole_ms:.4f} ms, per call "
+          f"{row['contract_rows_ell_ms_per_call_with_enqueue']:.4f} ms, host "
+          f"{row['contract_rows_ell_host_us_per_call']:.1f} us; the gather-contract "
+          f"entry on pre-gathered rows {gather_ms:.4f} ms", flush=True)
+    return row
+
+
+def b5_at_path_shapes(torch, ell, check_b5, check_b5_rows):
+    """Phase 7: B5 (``b5_timed``) on phase 6's final operands at the
+    frontier's (J, F, N) (the F rows of each transition's slab with the
+    most finite entries) and the dense round's (J, N, N) d, float32, and
+    at the dense round's shape on those operands encoded to levels (the
+    int32 entry; phase 11 times it at the frontier's). Frees the
+    operands."""
+    from repro_torch.core.contraction import BucketBackend, resolve_backend
+
+    d, adj, labs = ell.pop("d"), ell.pop("ell"), ell.pop("labs")
     j, n, _ = d.shape
-    e = idx.shape[2]
     f = ell["frontier_cap"]
     live = (d > float("-inf")).sum(dim=2)                     # (J, N)
     top = torch.topk(live, f, dim=1).indices                  # (J, F)
     d_f = d.gather(1, top[:, :, None].expand(j, f, n)).contiguous()
-    idx_l = idx.long().reshape(j, 1, n * e)
-
-    def yardstick(dd):
-        cand = torch.minimum(dd[:, :, :, None], ts[:, None])          # call 1
-        out = torch.full(dd.shape, float("-inf"), device=dd.device)
-        return out.scatter_reduce_(2, idx_l.expand(-1, dd.shape[1], -1),  # call 2
-                                   cand.reshape(j, dd.shape[1], n * e),
-                                   "amax", include_self=True)
-
-    rows = {}
-    # phase 11's B5-int32 operands: the frontier shape's, encoded to levels
-    # on the grid of the run's latest timestamp and the 20 s window
-    from repro_torch.core.contraction import BucketBackend
-    clock = ts.max()
+    rows = {"frontier": b5_timed(torch, "frontier", d_f, adj, labs, resolve_backend("cuda"),
+                                 50, check_b5_rows, check_b5)}
+    torch.cuda.empty_cache()
+    rows["dense"] = b5_timed(torch, "dense", d, adj, labs, resolve_backend("cuda"), 3,
+                             check_b5_rows, check_b5)
+    torch.cuda.empty_cache()
+    # the int32 entry: the operands encoded to levels on the grid of the
+    # run's latest timestamp and the 20 s window; the frontier's for phase 11
     enc = BucketBackend(BUCKET_LEVELS)
-    rows["s32_operands"] = (enc.encode(d_f, clock, 20.0), idx,
-                            enc.encode(ts, clock, 20.0))
-    for tag, dd, reps in (("frontier", d_f, 20), ("dense", d, 3)):
-        m = dd.shape[1]
-        check_b5(dd, idx, ts, f"{tag} shape J={j} M={m} U={n} E={e}")
-        if not torch.equal(yardstick(dd), b5.ell_gather_contract(dd, idx, ts)):
-            fail(f"the two-call yardstick differs from B5 at the {tag} shape")
-        torch.cuda.synchronize()
-        ms = time_cuda(torch, lambda: b5.ell_gather_contract(dd, idx, ts), reps)
-        plain = time_cuda(torch, lambda: ell_gather_contract_ref(dd, idx, ts),
-                          max(1, reps // 3))
-        lib = time_cuda(torch, lambda: yardstick(dd), max(1, reps // 3))
-        cands = int((dd > float("-inf")).sum()) * e
-        bms, by = bound_ell_ms(j, m, n, e, cands)
-        rows[tag] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
-                     "bound_ms": bms, "bound_by": by, "shape": [j, m, n, e]}
-        print(f"[kernel] B5 {tag} shape J={j} M={m} U={n} E={e} "
-              f"({cands} live candidates): {ms:.3f} ms, bound {bms:.3f} ms "
-              f"({by}), {100 * bms / ms:.1f}% of bound; plain {plain:.3f} ms; "
-              f"two-call yardstick {lib:.3f} ms", flush=True)
-        torch.cuda.empty_cache()
-    del d, d_f, idx, ts
+    now, w = adj.ts.max(), torch.tensor(20.0, device=d.device)
+    d_l, adj_l = enc.prepare_state(d, adj, now, w)
+    del d
+    torch.cuda.empty_cache()
+    rows["s32_dense"] = b5_timed(torch, "dense", d_l, adj_l, labs, enc, 3, check_b5_rows)
+    del d_l
+    rows["s32_operands"] = (enc.encode(d_f, now, w), adj_l, labs)
+    del d_f, adj
     torch.cuda.empty_cache()
     return rows
 
@@ -1333,11 +1496,13 @@ def bucket_phase(torch, queries, twin, n_slots: int, tag: str, device=None,
     tuples = timed_part + tail
     n_del = sum(1 for s in tuples if s.op == "-")
     rounds0, steps0 = ex.rounds_total, ex.steps
+    contractions0 = ex.ell_contractions_total
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     b1.maxmin_matmul_fused.launches = 0
     b3.bucket_maxmin_fused.launches = 0
+    b5.ell_contract_rows.launches = 0
     b5.ell_gather_contract.launches = 0
     b6.rowsparse_gather.launches = 0
     t0 = time.perf_counter()
@@ -1352,7 +1517,10 @@ def bucket_phase(torch, queries, twin, n_slots: int, tag: str, device=None,
     elif tail:
         svc.ingest(Stream(tail))
     launches = (b3.bucket_maxmin_fused.launches, b1.maxmin_matmul_fused.launches,
-                b5.ell_gather_contract.launches, b6.rowsparse_gather.launches)
+                b5.ell_contract_rows.launches, b6.rowsparse_gather.launches)
+    if b5.ell_gather_contract.launches:
+        fail(f"{tag}: B5's gather-contract entry ran on the path")
+    contractions = ex.ell_contractions_total - contractions0
     rounds = ex.rounds_total - rounds0
     steps = ex.steps - steps0
     peak = torch.cuda.max_memory_allocated() if on_card else 0
@@ -1374,7 +1542,10 @@ def bucket_phase(torch, queries, twin, n_slots: int, tag: str, device=None,
           f"{launches[2]}, B6 {launches[3]}; peak device memory {peak} bytes "
           f"({peak / 2**30:.3f} GiB)", flush=True)
 
-    expected = ((0, 0, rounds) if ell else (rounds, 0, 0)) + (b6_expected,)
+    # B5: one launch per frontier round, one per J chunk of a dense round
+    expected = ((0, 0, contractions) if ell else (rounds, 0, 0)) + (b6_expected,)
+    if ell and contractions < rounds:
+        fail(f"{tag}: {contractions} ELL contractions over {rounds} rounds")
     if on_card and not (launches == expected and rounds > 0):
         fail(f"{tag} run: launches (B3, B1, B5, B6) {launches} != {expected}")
     missing = [n for n in queries if not twin["ref"][n] <= svc.results(n)]
@@ -1553,8 +1724,9 @@ def level_kernels_phase(torch, gen, j_path: int, n: int, b5_rows):
 
     from repro_torch.kernels.bucket import bucket as b3
     from repro_torch.kernels.bucket.ref import bucket_maxmin_fused_ref, bucket_maxmin_ref
+    from repro_torch.core.contraction import BucketBackend
     from repro_torch.kernels.ell import ell as b5
-    from repro_torch.kernels.ell.ref import ell_gather_contract_ref
+    from repro_torch.kernels.ell.ref import ell_contract_rows_ref, ell_gather_contract_ref
     from repro_torch.kernels.maxmin import maxmin as b1
     from repro_torch.kernels.maxmin.ref import maxmin_matmul_ref
 
@@ -1620,9 +1792,14 @@ def level_kernels_phase(torch, gen, j_path: int, n: int, b5_rows):
                             dtype=torch.int32)
         same(b5.ell_gather_contract(d, idx, ts),
              ell_gather_contract_ref(d, idx, ts, zero=0), f"B5-int32 at {(j, m, u, e)}")
+    for (j, m, u, e) in B5_CASES + B5_WIDE:
+        d, idx, ts, labs, ring = b5_rows_operands(torch, gen, j, m, u, e, levels=True)
+        same(b5.ell_contract_rows(d, idx, ts, labs, *ring),
+             ell_contract_rows_ref(d, idx, ts, labs, *ring, zero=0),
+             f"B5-int32 whole entry at {(j, m, u, e)}, full ring")
     print(f"[kernel] B3, B4 == plain (torch.equal) on 9 test shapes, B2 on "
-          f"{len(SHAPES)} float32 and float16, B5-int32 on {len(B5_CASES)}",
-          flush=True)
+          f"{len(SHAPES)} float32 and float16, B5-int32 on {len(B5_CASES)} (its "
+          f"whole entry with a full ring also at {B5_WIDE})", flush=True)
 
     rows = {}
     # B3 at the dense round's (J, N, N, N) and the frontier's skinny slabs
@@ -1679,29 +1856,23 @@ def level_kernels_phase(torch, gen, j_path: int, n: int, b5_rows):
                        lambda: maxmin_matmul_ref(x, y), None, 10, 1,
                        bound_ms(1, n, n, n), [n, n, n], "B2")
     # B5-int32 at phase 6's frontier shape, on its operands encoded to levels
-    d, idx, ts = b5_rows.pop("s32_operands")
-    j, m, u = d.shape
-    e = idx.shape[2]
-    same(b5.ell_gather_contract(d, idx, ts),
-         ell_gather_contract_ref(d, idx, ts, zero=0), f"B5-int32 at {(j, m, u, e)}")
-    idx_l = idx.long().reshape(j, 1, u * e)
+    d, adj, labs = b5_rows.pop("s32_operands")
 
-    def ell_yardstick():
-        cand = torch.minimum(d[:, :, :, None], ts[:, None])           # call 1
-        o = torch.zeros(d.shape, dtype=torch.int32, device=d.device)
-        return o.scatter_reduce_(2, idx_l.expand(-1, m, -1),           # call 2
-                                 cand.reshape(j, m, u * e), "amax", include_self=True)
+    def check_rows(dd, ell_idx, ell_ts, lab_t, ring, what):
+        same(b5.ell_contract_rows(dd, ell_idx, ell_ts, lab_t, *ring),
+             ell_contract_rows_ref(dd, ell_idx, ell_ts, lab_t, *ring, zero=0),
+             f"B5-int32 at {what}")
 
-    if not torch.equal(ell_yardstick(), b5.ell_gather_contract(d, idx, ts)):
-        fail("the two-call yardstick differs from B5-int32")
-    cands = int((d > 0).sum()) * e
-    t_bytes = (4 * 2 * j * m * u + 8 * j * u * e) / PEAK_BYTES
-    t_ops = 2.0 * cands / PEAK_F32_OPS
-    rows["B5-int32"] = timed(
-        torch, lambda: b5.ell_gather_contract(d, idx, ts),
-        lambda: ell_gather_contract_ref(d, idx, ts, zero=0), ell_yardstick, 20, 5,
-        (max(t_bytes, t_ops) * 1e3, "operations" if t_ops >= t_bytes else "bytes"),
-        [j, m, u, e], "B5-int32")
+    def check_gathered(dd, idx, ts, what):
+        same(b5.ell_gather_contract(dd, idx, ts),
+             ell_gather_contract_ref(dd, idx, ts, zero=0), f"B5-int32 at {what}")
+
+    rows["B5-int32"] = {**b5_timed(torch, "frontier", d, adj, labs,
+                                   BucketBackend(BUCKET_LEVELS), 50, check_rows,
+                                   check_gathered),
+                        "dense": b5_rows.pop("s32_dense")}
+    idx = ts = None
+    del adj
     del d, idx, ts, x, y, a1, b1_
     torch.cuda.empty_cache()
     for key, err in errs.items():

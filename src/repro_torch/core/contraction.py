@@ -9,10 +9,12 @@ hooks and its three backends):
     transition rows, ``d_s (J, M, N)[x, u] x a_l (J, N, N)[u, v]``;
   * :meth:`Backend.contract_batched` — the dense round's gather, contract
     and row masking;
-  * :meth:`Backend.contract_rows_ell` / :meth:`Backend.contract_batched_ell`
-    — the same against padded-ELL adjacency rows (kernel B5 on the card),
-    with the spill ring folded in plain PyTorch (:meth:`Backend._fold_spill`,
-    which the reference also keeps outside its kernel);
+  * :meth:`Backend.contract_rows_ell` — the same against the padded-ELL
+    adjacency rows of each transition row's label, the spill ring folded
+    in (kernel B5 on the card, one launch; the reference gathers the rows
+    and folds the ring around its kernel). The dense round gathers its
+    operand and masks rows itself, chunked over J
+    (``semiring._round_update``);
   * :meth:`Backend.gather_dist_rows` — the row-sparse dist's densify of
     the gathered frontier rows (kernel B6 on the card), on raw float32
     timestamps with a -inf zero;
@@ -52,8 +54,8 @@ import torch
 
 from ..kernels.bucket.bucket import bucket_maxmin, bucket_maxmin_fused
 from ..kernels.bucket.ref import bucket_maxmin_fused_ref, bucket_maxmin_ref
-from ..kernels.ell.ell import ell_gather_contract
-from ..kernels.ell.ref import ell_gather_contract_ref
+from ..kernels.ell.ell import ell_contract_rows
+from ..kernels.ell.ref import ell_contract_rows_ref
 from ..kernels.maxmin.maxmin import maxmin_matmul, maxmin_matmul_fused
 from ..kernels.maxmin.ref import maxmin_matmul_fused_ref, maxmin_matmul_ref
 from ..kernels.rowsparse.ref import rowsparse_gather_ref
@@ -64,6 +66,11 @@ NEG_INF = float("-inf")
 
 #: backend names resolve_backend accepts; the first is the default
 KNOWN_BACKENDS = ("cuda", "plain", "mxu_bucket")
+
+
+def _ring(ell: EllAdjacency):
+    """The spill ring's four leaves, in kernel B5's argument order."""
+    return ell.spill_src, ell.spill_dst, ell.spill_lab, ell.spill_ts
 
 
 class Backend:
@@ -137,41 +144,16 @@ class Backend:
     # min never reassociate and free slots fold to the zero, so every
     # variant is bit-identical to the dense hook on ``ell_to_dense(adj)``.
 
-    def _gather_contract(self, d, idx, ts) -> torch.Tensor:
-        """d (J, M, U) x ELL rows idx/ts (J, U, E) -> (J, M, U), starting
-        from :attr:`zero`."""
+    def _contract_ell(self, d, ell: EllAdjacency, labs) -> torch.Tensor:
+        """d (J, M, U) contiguous against the ELL rows and the ring of
+        each row's label -> (J, M, U), starting from :attr:`zero`."""
         raise NotImplementedError
-
-    def _fold_spill(self, contrib, d_s, ell: EllAdjacency, labs):
-        """Fold the spill ring into a gather-contract result in place: for
-        ring entries on transition j's label, ``contrib[j, :, dst] max=
-        min(d_s[j, :, src], spill_ts)``. Free ring entries carry
-        :attr:`zero` and annihilate."""
-        j, m, _ = contrib.shape
-        eff = torch.where(ell.spill_lab.long()[None, :] == labs[:, None],
-                          ell.spill_ts[None, :], self.zero)          # (J, S)
-        d_sp = d_s.index_select(2, ell.spill_src.long())             # (J, M, S)
-        cand = torch.minimum(d_sp, eff[:, None, :].to(d_s.dtype))
-        dst = ell.spill_dst.long()[None, None, :].expand(cand.shape)
-        return contrib.scatter_reduce_(2, dst, cand, "amax", include_self=True)
 
     def contract_rows_ell(self, d_s, ell: EllAdjacency, labs) -> torch.Tensor:
         """Batched max-min over u against ELL rows: d_s (J, M, N)[x, u] x
-        the per-label slot rows of ``ell`` -> (J, M, N)[x, v], O(M*N*E)
-        work instead of the dense O(M*N*N)."""
-        labs = labs.long()
-        contrib = self._gather_contract(d_s.contiguous(), ell.idx[labs],
-                                        ell.ts[labs])
-        return self._fold_spill(contrib, d_s, ell, labs)
-
-    def contract_batched_ell(self, dist, ell: EllAdjacency, btt,
-                             mask) -> torch.Tensor:
-        """ELL twin of :meth:`contract_batched` (same gather of dist, same
-        masking contract)."""
-        d_s = dist[btt.qidx, :, :, btt.src]           # (J, N, N) [x, u]
-        contrib = self.contract_rows_ell(d_s, ell, btt.lab)
-        del d_s
-        return contrib.masked_fill_(~mask[:, None, None], self.zero)
+        the per-label slot rows of ``ell`` and its spill ring -> (J, M,
+        N)[x, v], O(M*N*E) work instead of the dense O(M*N*N)."""
+        return self._contract_ell(d_s.contiguous(), ell, labs)
 
     # -- row-sparse dist gather ----------------------------------------------
 
@@ -195,8 +177,8 @@ class PlainBackend(Backend):
     def contract_rows(self, d_s, a_l):
         return maxmin_matmul_fused_ref(d_s, a_l)
 
-    def _gather_contract(self, d, idx, ts):
-        return ell_gather_contract_ref(d, idx, ts)
+    def _contract_ell(self, d, ell, labs):
+        return ell_contract_rows_ref(d, ell.idx, ell.ts, labs, *_ring(ell))
 
     def gather_dist_rows(self, idx, ts, e):
         return rowsparse_gather_ref(idx, ts, e)
@@ -204,9 +186,10 @@ class PlainBackend(Backend):
 
 class KernelBackend(Backend):
     """Kernels B1 (``repro_torch/csrc/maxmin.cu``) and B5
-    (``repro_torch/csrc/ell.cu``): one launch per round for all J
-    transition rows; B6 (``repro_torch/csrc/rowsparse.cu``): one launch
-    per row-sparse frontier dispatch for all gathered rows; and B2
+    (``repro_torch/csrc/ell.cu``, the label gather and the spill ring
+    folded in): one launch per round for all J transition rows (per J
+    chunk of a dense ELL round); B6 (``repro_torch/csrc/rowsparse.cu``):
+    one launch per row-sparse frontier dispatch for all gathered rows; and B2
     (``maxmin.cu`` with J = 1): one launch per transition of the legacy
     round. Bit-identical to :class:`PlainBackend`."""
 
@@ -218,8 +201,8 @@ class KernelBackend(Backend):
     def contract_rows(self, d_s, a_l):
         return maxmin_matmul_fused(d_s, a_l)
 
-    def _gather_contract(self, d, idx, ts):
-        return ell_gather_contract(d, idx, ts)
+    def _contract_ell(self, d, ell, labs):
+        return ell_contract_rows(d, ell.idx, ell.ts, labs, *_ring(ell))
 
     def gather_dist_rows(self, idx, ts, e):
         return rowsparse_gather(idx, ts, e)
@@ -343,10 +326,11 @@ class BucketBackend(Backend):
             return bucket_maxmin_fused(d_s, a_l, n_levels=self.t_alloc)
         return bucket_maxmin_fused_ref(d_s, a_l, self.t_alloc)
 
-    def _gather_contract(self, d, idx, ts):
+    def _contract_ell(self, d, ell, labs):
         if self.use_kernels:
-            return ell_gather_contract(d, idx, ts)
-        return ell_gather_contract_ref(d, idx, ts, zero=self.zero)
+            return ell_contract_rows(d, ell.idx, ell.ts, labs, *_ring(ell))
+        return ell_contract_rows_ref(d, ell.idx, ell.ts, labs, *_ring(ell),
+                                     zero=self.zero)
 
     def gather_dist_rows(self, idx, ts, e):
         if self.use_kernels:

@@ -53,6 +53,7 @@ from .semiring import (
     _closure,
     _frontier,
     batched_valid_pairs,
+    ell_round_launches,
 )
 from .sparse_dist import (
     RowSparseDist,
@@ -407,6 +408,7 @@ class Executor:
         self._frontier_growth_mark = 0
         self._frontier_delete_dispatches = 0
         self._frontier_delete_fallbacks = 0
+        self._ell_contractions_total = 0
         #: blocking reads of the closure loops (one per round) and of the
         #: frontier fallback decision (one per frontier dispatch)
         self.host_syncs = 0
@@ -603,7 +605,7 @@ class Executor:
         else:
             self._arrays, new, rounds, qrounds, syncs = _ingest(
                 *args, backend=self.backend, host=host)
-        self._account(rounds, qrounds, tables.n_live, syncs, fstats)
+        self._account(rounds, qrounds, tables, syncs, fstats)
         self.steps += 1
         return new
 
@@ -630,8 +632,7 @@ class Executor:
         else:
             self._arrays, invalidated, rounds, qrounds, syncs = _delete(
                 *args, backend=self.backend, host=host)
-        self._account(rounds, qrounds, tables.n_live, syncs, fstats,
-                      is_delete=True)
+        self._account(rounds, qrounds, tables, syncs, fstats, is_delete=True)
         self.steps += 1
         return invalidated
 
@@ -649,7 +650,7 @@ class Executor:
             a.dist, a.adj, tables.btt, self.backend, 0, mask, a.now,
             _f32(tables.max_window, self.device))
         self._arrays = a._replace(dist=dist)
-        self._account(rounds, qrounds, tables.n_live, syncs)
+        self._account(rounds, qrounds, tables, syncs)
 
     def emit(self, tables: QueryTables) -> torch.Tensor:
         """(Q, N, N) bool device tensor of pairs valid over each query's
@@ -825,12 +826,18 @@ class Executor:
 
     # -- round and frontier accounting ---------------------------------------
 
-    def _account(self, rounds: int, qrounds: torch.Tensor, n_live: int,
+    def _account(self, rounds: int, qrounds: torch.Tensor, tables: QueryTables,
                  syncs: int, fstats=None, is_delete: bool = False) -> None:
         self.host_syncs += syncs
         n = self.dist_shape[1] if self._arrays is not None else 0
+        if self.adj_layout == "ell":
+            # a frontier round contracts once, a dense round once per J chunk
+            dense = fstats is None or fstats.fell_back
+            per_round = (ell_round_launches(tables.btt.qidx.shape[0], n)
+                         if dense else 1)
+            self._ell_contractions_total += rounds * per_round
         self._pending_counts.append(
-            (rounds, qrounds, n_live, fstats, n, is_delete))
+            (rounds, qrounds, tables.n_live, fstats, n, is_delete))
         # "auto" flushes more eagerly: its x2 capacity growth reads the
         # flushed overflow telemetry (the reference's cadence)
         limit = 64 if self.frontier == "auto" else 256
@@ -908,6 +915,14 @@ class Executor:
             "occupancy": (self._frontier_rows_relaxed / dense_rows
                           if dense_rows else None),
         }
+
+    @property
+    def ell_contractions_total(self) -> int:
+        """ELL contractions the closure rounds ran, kernel B5's launches on
+        the card: one per frontier round, one per J chunk of a dense round
+        (:func:`~repro_torch.core.semiring.ell_round_launches`); 0 on the
+        dense adjacency."""
+        return self._ell_contractions_total
 
     @property
     def rounds_total(self) -> int:

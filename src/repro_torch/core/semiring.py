@@ -49,6 +49,11 @@ from .sparse_dist import (
 
 NEG_INF = float("-inf")
 
+#: bytes one chunk of the dense ELL round may hold in its two (chunk, N, N)
+#: tensors, the gathered dist rows and their contraction: ~2 GiB, so a
+#: round at N=8192 runs 4 transition rows a chunk and small ones one chunk
+ELL_ROUND_BYTES = 2 << 30
+
 
 # ---------------------------------------------------------------------------
 # The legacy single-query round (reference: semiring.py:55-167)
@@ -257,11 +262,14 @@ def _round_update(dist: torch.Tensor, adj: torch.Tensor,
     # base term: seed (x, x, s0) = +inf => min(+inf, adj[l, x, v]) = adj,
     # applied only to ACTIVE start rows so it cannot unmask a zeroed row
     s = btt.start_idx
+    # segment max over qidx * K + dst; empty segments hold the dtype
+    # minimum, as jax.ops.segment_max fills them (-inf for floats, below
+    # every level for the bucket backend's int32)
+    seg = btt.qidx * k + btt.dst
     if isinstance(adj, EllAdjacency):
-        contrib = backend.contract_batched_ell(dist, adj, btt, active)
-        if s.numel():
-            _fold_base_ell(contrib, adj, s, btt.lab.index_select(0, s),
-                           active.index_select(0, s), backend.zero)
+        scat = _segment_buffer(q * k, n, dist)
+        _ell_round_chunks(scat, dist, adj, btt, backend, active, seg,
+                          bool(s.numel()))
     else:
         contrib = backend.contract_batched(dist, adj, btt, active)  # (J, N, N)
         if s.numel():
@@ -271,14 +279,56 @@ def _round_update(dist: torch.Tensor, adj: torch.Tensor,
                               torch.maximum(sub, base), sub)
             contrib.index_copy_(0, s, sub)
             del sub, base
-    # segment max over qidx * K + dst; empty segments hold the dtype
-    # minimum, as jax.ops.segment_max fills them (-inf for floats, below
-    # every level for the bucket backend's int32)
-    seg = btt.qidx * k + btt.dst
-    scat = torch.full((q * k, n, n), _dtype_min(dist.dtype), dtype=dist.dtype,
-                      device=dist.device)
-    scat.index_reduce_(0, seg, contrib, "amax", include_self=True)
+        scat = _segment_buffer(q * k, n, dist)
+        scat.index_reduce_(0, seg, contrib, "amax", include_self=True)
     return scat.view(q, k, n, n).permute(0, 2, 3, 1)
+
+
+def _segment_buffer(segments: int, n: int, dist: torch.Tensor) -> torch.Tensor:
+    """The (segments, N, N) segment-max buffer, filled with the dtype
+    minimum."""
+    return torch.full((segments, n, n), _dtype_min(dist.dtype),
+                      dtype=dist.dtype, device=dist.device)
+
+
+def ell_round_chunk(j: int, n: int, itemsize: int = 4) -> int:
+    """Transition rows a chunk of the dense ELL round holds: as many as
+    keep its gathered rows and their contraction, two (chunk, N, N)
+    tensors, within :data:`ELL_ROUND_BYTES`; at least 1, at most J."""
+    return max(1, min(j, ELL_ROUND_BYTES // max(1, 2 * n * n * itemsize)))
+
+
+def ell_round_launches(j: int, n: int, itemsize: int = 4) -> int:
+    """Contractions (kernel B5's launches on the card) one dense ELL
+    round of J transition rows over N slots makes: one per chunk."""
+    return -(-j // ell_round_chunk(j, n, itemsize))
+
+
+def _ell_round_chunks(scat, dist, adj: EllAdjacency,
+                      btt: BatchedTransitionTable, backend: Backend,
+                      active, seg, has_base: bool) -> None:
+    """The dense round's ELL contraction folded into ``scat`` chunk by
+    chunk over the J transition rows (:func:`ell_round_chunk`): per
+    chunk the gather of ``dist[qidx, :, :, src]``, one contraction, the
+    masking and the base term on its active start rows, and the segment
+    max. Max never reassociates, so any chunking is bit-identical to one
+    chunk."""
+    j_rows, n = btt.qidx.shape[0], dist.shape[1]
+    step = ell_round_chunk(j_rows, n, dist.element_size())
+    base_rows = btt.start_mask & active
+    for j0 in range(0, j_rows, step):
+        rows = slice(j0, min(j_rows, j0 + step))
+        # advanced indices split by slices go first, as in numpy and JAX
+        d_s = dist[btt.qidx[rows], :, :, btt.src[rows]]        # (c, N, N)
+        contrib = backend.contract_rows_ell(d_s, adj, btt.lab[rows])
+        del d_s
+        contrib.masked_fill_(~active[rows, None, None], backend.zero)
+        if has_base:
+            _fold_base_ell(contrib, adj,
+                           torch.arange(contrib.shape[0], device=dist.device),
+                           btt.lab[rows], base_rows[rows], backend.zero)
+        scat.index_reduce_(0, seg[rows], contrib, "amax", include_self=True)
+        del contrib
 
 
 def _dtype_min(dtype: torch.dtype):

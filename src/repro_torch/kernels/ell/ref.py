@@ -3,6 +3,10 @@
     out[j, m, v] = max over (u, e) with idx[j, u, e] == v of
                    min(d[j, m, u], ts[j, u, e])
 
+and of the whole contraction a backend's ``contract_rows_ell`` runs
+(:func:`ell_contract_rows_ref`): the same on the ELL rows of each row's
+label, with the spill ring folded in.
+
 The counterpart of ``repro.kernels.ell.ref``: the (max, min) contraction
 of a row block ``d`` against padded-ELL adjacency rows, without
 densifying the (N, N) label slab. Free slots carry ``ts == zero`` (-inf),
@@ -51,6 +55,31 @@ def ell_gather_contract_ref(d: torch.Tensor, idx: torch.Tensor,
                     1, i_c.expand(m1 - m0, -1), cand.reshape(m1 - m0, -1),
                     "amax", include_self=True)
     return out
+
+
+def ell_contract_rows_ref(d: torch.Tensor, ell_idx: torch.Tensor,
+                          ell_ts: torch.Tensor, labs: torch.Tensor,
+                          spill_src: torch.Tensor, spill_dst: torch.Tensor,
+                          spill_lab: torch.Tensor, spill_ts: torch.Tensor, *,
+                          zero: float = NEG_INF) -> torch.Tensor:
+    """d (J, M, U) against the ELL rows of label ``labs[j]`` (leaves
+    (L, U, E)) and the spill ring's (S,) leaves -> (J, M, U): the
+    gather-contract on ``ell_idx[labs]`` / ``ell_ts[labs]``, then for ring
+    entries on row j's label ``out[j, :, dst] max= min(d[j, :, src],
+    spill_ts)``. Free ring entries carry ``zero`` and annihilate; an entry
+    whose src or dst lies outside [0, U) is dropped, as JAX's scatter
+    drops out-of-range updates."""
+    labs = labs.long()
+    out = ell_gather_contract_ref(d, ell_idx[labs], ell_ts[labs], zero=zero)
+    u = d.shape[2]
+    src, dst = spill_src.long(), spill_dst.long()
+    ok = (src >= 0) & (src < u) & (dst >= 0) & (dst < u)
+    hit = (spill_lab.long()[None, :] == labs[:, None]) & ok[None, :]  # (J, S)
+    eff = torch.where(hit, spill_ts[None, :].to(d.dtype), zero)
+    d_sp = d.index_select(2, torch.where(ok, src, 0))                  # (J, M, S)
+    cand = torch.minimum(d_sp, eff[:, None, :])
+    dst = torch.where(ok, dst, 0)[None, None, :].expand(cand.shape)
+    return out.scatter_reduce_(2, dst, cand, "amax", include_self=True)
 
 
 def ell_gather_contract_naive(d: torch.Tensor, idx: torch.Tensor,

@@ -21,7 +21,8 @@ from repro_torch.core.sparse_adj import ell_insert, pack_ell_dense
 from repro_torch.kernels.bucket import bucket as b3
 from repro_torch.kernels.bucket.ref import bucket_maxmin_fused_ref, bucket_maxmin_ref
 from repro_torch.kernels.ell import ell as b5
-from repro_torch.kernels.ell.ref import ell_gather_contract_ref
+from repro_torch.core import semiring
+from repro_torch.kernels.ell.ref import ell_contract_rows_ref, ell_gather_contract_ref
 from repro_torch.kernels.maxmin import maxmin as b1
 from repro_torch.kernels.maxmin.ref import maxmin_matmul_fused_ref, maxmin_matmul_ref
 from repro_torch.kernels.rowsparse import rowsparse as b6
@@ -204,6 +205,9 @@ def test_engine_on_card_equals_engine_on_cpu(cuda):
 # tests/test_torch_kernels.py: B5_CASES (J, M, U, E)
 B5_CASES = [(2, 5, 12, 3), (1, 1, 9, 1), (3, 7, 13, 2), (4, 16, 33, 4),
             (1, 130, 257, 8), (48, 4, 2048, 2), (6, 300, 700, 5)]
+# a row wider than one block's shared memory (the kernel splits its
+# columns), aligned and ragged
+B5_WIDE = [(1, 2, 70000, 3), (1, 2, 70001, 2)]
 
 
 def _ell_operands(rng, j, m, u, e, device):
@@ -242,9 +246,71 @@ def test_b5_refuses_bad_operands(cuda):
                                idx, ts)
 
 
+def _rows_operands(rng, j, m, u, e, device, levels=False):
+    """B5's whole entry's operands: ELL leaves of 3 labels, repeating
+    labels, and a 64-entry ring whose every entry is live, two of them with
+    dst outside [0, U) and one with src outside it (dropped)."""
+    n_labels, s = 3, 64
+    d = rng.uniform(0.0, 1000.0, (j, m, u)).astype(np.float32)
+    d[rng.random(d.shape) > 0.4] = -np.inf
+    idx = rng.integers(0, u, (n_labels, u, e)).astype(np.int32)
+    idx[:, :, 0] = idx[:, :, -1]                 # duplicate destinations
+    ts = rng.uniform(0.0, 1000.0, (n_labels, u, e)).astype(np.float32)
+    ts[rng.random(ts.shape) > 0.6] = -np.inf
+    labs = rng.integers(0, n_labels, (j,)).astype(np.int32)
+    src, dst = rng.integers(0, u, (2, s)).astype(np.int32)
+    lab = (np.arange(s) % n_labels).astype(np.int32)
+    sts = rng.uniform(1.0, 1000.0, s).astype(np.float32)
+    dst[1], dst[2], src[3] = u, u + 9, u
+    if levels:
+        d, ts, sts = (np.where(np.isfinite(x), np.nan_to_num(x, neginf=0.0) // 100 + 1,
+                               0).astype(np.int32) for x in (d, ts, sts))
+    t = [torch.from_numpy(x).to(device) for x in (d, idx, ts, labs, src, dst, lab, sts)]
+    return t[0], t[1], t[2], t[3], tuple(t[4:])
+
+
+@pytest.mark.parametrize("levels", [False, True])
+@pytest.mark.parametrize("J,M,U,E", B5_CASES + B5_WIDE)
+def test_b5_whole_entry_equals_plain_version(cuda, J, M, U, E, levels):
+    """The whole entry (ELL leaves, labels and a full ring) on float32 and
+    int32: one launch a call, equal to its plain version with int32 and
+    int64 labels."""
+    rng = np.random.default_rng(J * 1000 + M + U + E + 7)
+    d, idx, ts, labs, ring = _rows_operands(rng, J, M, U, E, cuda, levels)
+    zero = 0 if levels else float("-inf")
+    for lab_t in (labs, labs.long()):
+        before = (b5.ell_contract_rows.launches, b5.ell_gather_contract.launches)
+        out = b5.ell_contract_rows(d, idx, ts, lab_t, *ring)
+        torch.cuda.synchronize()
+        assert (b5.ell_contract_rows.launches, b5.ell_gather_contract.launches) == \
+            (before[0] + 1, before[1])
+        assert out.dtype == d.dtype
+        assert torch.equal(out, ell_contract_rows_ref(d, idx, ts, lab_t, *ring,
+                                                      zero=zero))
+
+
+def test_b5_whole_entry_refuses_bad_operands(cuda):
+    rng = np.random.default_rng(1)
+    d, idx, ts, labs, ring = _rows_operands(rng, 2, 3, 8, 2, cuda)
+    with pytest.raises(TypeError):
+        b5.ell_contract_rows(d, idx.long(), ts, labs, *ring)
+    with pytest.raises(TypeError):
+        b5.ell_contract_rows(d.int(), idx, ts, labs, *ring)      # one element type
+    with pytest.raises(TypeError):
+        b5.ell_contract_rows(d, idx, ts, labs.float(), *ring)
+    with pytest.raises(TypeError):
+        b5.ell_contract_rows(d, idx, ts, labs, ring[0].long(), *ring[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        b5.ell_contract_rows(d.repeat(1, 1, 2)[:, :, ::2], idx, ts, labs, *ring)
+    with pytest.raises(ValueError, match="contiguous"):
+        b5.ell_contract_rows(d, idx.transpose(0, 1).contiguous().transpose(0, 1),
+                             ts, labs, *ring)
+
+
 def test_b5_with_a_full_spill_ring(cuda):
-    """contract_rows_ell on the card with every ring entry live: kernel B5
-    plus the spill fold equal the plain backend on the same inputs."""
+    """contract_rows_ell on the card with every ring entry live: kernel B5,
+    with the ring folded in, in one launch, equals the plain backend on the
+    same inputs."""
     rng = np.random.default_rng(5)
     n, labels, cap = 40, 3, 2
     dense = torch.full((labels, n, n), float("-inf"), device=cuda)
@@ -259,20 +325,29 @@ def test_b5_with_a_full_spill_ring(cuda):
     assert bool((ell.spill_ts > float("-inf")).all())
     d = torch.from_numpy(rng.uniform(0, 500, (6, 9, n)).astype(np.float32)).to(cuda)
     labs = torch.tensor([0, 1, 2, 0, 1, 2], device=cuda)
-    before = b5.ell_gather_contract.launches
+    before = (b5.ell_contract_rows.launches, b5.ell_gather_contract.launches)
     out = resolve_backend("cuda").contract_rows_ell(d, ell, labs)
     torch.cuda.synchronize()
-    assert b5.ell_gather_contract.launches == before + 1
+    assert (b5.ell_contract_rows.launches, b5.ell_gather_contract.launches) == \
+        (before[0] + 1, before[1])
     assert torch.equal(out, resolve_backend("plain").contract_rows_ell(d, ell, labs))
 
 
+#: the dense ELL round's byte budget in the engine tests below: 3
+#: transition rows a chunk at n_slots=16, so a dense round launches B5
+#: ceil(J / 3) times
+SMALL_ROUND_BYTES = 3 * 2 * 16 * 16 * 4
+
+
 @pytest.mark.parametrize("adj_layout", ["ell", "dense"])
-def test_frontier_engine_on_card_equals_engine_on_cpu(cuda, adj_layout):
+def test_frontier_engine_on_card_equals_engine_on_cpu(cuda, adj_layout, monkeypatch):
     """frontier="auto" from a tiny capacity (fallbacks, growth, cone
     deletes) and, for ELL, a tiny degree capacity (rows spill into the
-    ring): per event and in the end state, the card equals the CPU, and on
-    the card
-    the ELL path launches B5 once per round and B1 never."""
+    ring) and a dense round in chunks of 3 transition rows: per event and
+    in the end state, the card equals the CPU, and on the card the ELL
+    path launches B5 exactly once per frontier round and once per chunk
+    of a dense round, and B1 never."""
+    monkeypatch.setattr(semiring, "ELL_ROUND_BYTES", SMALL_ROUND_BYTES)
     queries = [("q1", "a2q . c2a*", "arbitrary"),
                ("q2", "(a2q | c2a | c2q)+", "arbitrary")]
 
@@ -285,7 +360,8 @@ def test_frontier_engine_on_card_equals_engine_on_cpu(cuda, adj_layout):
     gpu, cpu = engine(cuda), engine("cpu")
     stream = with_deletions(so_like(n_vertices=24, n_edges=160, seed=4),
                             ratio=0.05, seed=2)
-    launches = (b1.maxmin_matmul_fused.launches, b5.ell_gather_contract.launches)
+    launches = (b1.maxmin_matmul_fused.launches, b5.ell_contract_rows.launches)
+    rounds0, contractions0 = gpu.total_rounds, gpu.executor.ell_contractions_total
     nxt = 2.0
     for sgt in stream:
         if sgt.ts >= nxt:
@@ -304,11 +380,15 @@ def test_frontier_engine_on_card_equals_engine_on_cpu(cuda, adj_layout):
     st = gpu.executor.frontier_stats
     assert st["fallbacks"] >= 1 and st["cap"] > 2
     b1_runs = b1.maxmin_matmul_fused.launches - launches[0]
-    b5_runs = b5.ell_gather_contract.launches - launches[1]
+    b5_runs = b5.ell_contract_rows.launches - launches[1]
+    rounds = gpu.total_rounds - rounds0
+    contractions = gpu.executor.ell_contractions_total - contractions0
+    assert gpu.executor.ell_contractions_total == cpu.executor.ell_contractions_total
     if adj_layout == "ell":
-        assert (b1_runs, b5_runs) == (0, gpu.total_rounds)
+        # the fallbacks' dense rounds ran in chunks: more launches than rounds
+        assert (b1_runs, b5_runs) == (0, contractions) and contractions > rounds
     else:
-        assert (b1_runs, b5_runs) == (gpu.total_rounds, 0)
+        assert (b1_runs, b5_runs, contractions) == (rounds, 0, 0)
 
 
 # (M, C, E, keys): C from 1 to 256, E off the kernel's 4096-column tile
@@ -361,12 +441,15 @@ def test_b6_refuses_bad_operands(cuda):
         b6.rowsparse_gather(idx.t().contiguous().t(), ts.t().contiguous().t(), 8)
 
 
-def test_row_sparse_engine_on_card_equals_engine_on_cpu(cuda):
+def test_row_sparse_engine_on_card_equals_engine_on_cpu(cuda, monkeypatch):
     """frontier="auto" from a tiny capacity over the ELL adjacency and the
     row-sparse dist from dist_cap=2 (table claims, drains, re-packs,
-    fallbacks, cone deletes): per event and in the final leaves the card
-    equals the CPU, and on the card B6 ran once per frontier insert
-    dispatch that did not fall back, B5 once per round and B1 never."""
+    fallbacks, cone deletes), dense rounds in chunks of 3 transition rows:
+    per event and in the final leaves the card equals the CPU, and on the
+    card B6 ran once per frontier insert dispatch that did not fall back,
+    B5 once per frontier round and once per chunk of a dense round, and B1
+    never."""
+    monkeypatch.setattr(semiring, "ELL_ROUND_BYTES", SMALL_ROUND_BYTES)
     queries = [("q1", "a2q . c2a*", "arbitrary"),
                ("q2", "(a2q | c2a | c2q)+", "arbitrary")]
 
@@ -380,8 +463,9 @@ def test_row_sparse_engine_on_card_equals_engine_on_cpu(cuda):
     gpu, cpu = engine(cuda), engine("cpu")
     stream = with_deletions(so_like(n_vertices=24, n_edges=160, seed=4),
                             ratio=0.05, seed=2)
-    launches = (b1.maxmin_matmul_fused.launches, b5.ell_gather_contract.launches,
+    launches = (b1.maxmin_matmul_fused.launches, b5.ell_contract_rows.launches,
                 b6.rowsparse_gather.launches)
+    rounds0, contractions0 = gpu.total_rounds, gpu.executor.ell_contractions_total
     nxt = 2.0
     for sgt in stream:
         if sgt.ts >= nxt:
@@ -402,9 +486,12 @@ def test_row_sparse_engine_on_card_equals_engine_on_cpu(cuda):
     inserts_kept = ((st["dispatches"] - st["delete_dispatches"])
                     - (st["fallbacks"] - st["delete_fallbacks"]))
     runs = (b1.maxmin_matmul_fused.launches - launches[0],
-            b5.ell_gather_contract.launches - launches[1],
+            b5.ell_contract_rows.launches - launches[1],
             b6.rowsparse_gather.launches - launches[2])
-    assert runs == (0, gpu.total_rounds, inserts_kept)
+    contractions = gpu.executor.ell_contractions_total - contractions0
+    assert runs == (0, contractions, inserts_kept)
+    assert contractions > gpu.total_rounds - rounds0
+    assert gpu.executor.ell_contractions_total == cpu.executor.ell_contractions_total
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float16])
@@ -558,8 +645,9 @@ def test_bucket_engine_on_card_equals_engine_on_cpu(cuda, layout):
     gpu, cpu = engine(cuda), engine("cpu")
     stream = with_deletions(so_like(n_vertices=24, n_edges=120, seed=4),
                             ratio=0.05, seed=2)
-    launches = (b3.bucket_maxmin_fused.launches, b5.ell_gather_contract.launches,
+    launches = (b3.bucket_maxmin_fused.launches, b5.ell_contract_rows.launches,
                 b1.maxmin_matmul_fused.launches)
+    rounds0, contractions0 = gpu.total_rounds, gpu.executor.ell_contractions_total
     nxt = 2.0
     for sgt in stream:
         if sgt.ts >= nxt:
@@ -573,10 +661,15 @@ def test_bucket_engine_on_card_equals_engine_on_cpu(cuda, layout):
             assert gpu.delete(*sgt.as_edge()) == cpu.delete(*sgt.as_edge())
     assert torch.equal(gpu.executor.dense_dist().cpu(), cpu.executor.dense_dist())
     runs = (b3.bucket_maxmin_fused.launches - launches[0],
-            b5.ell_gather_contract.launches - launches[1],
+            b5.ell_contract_rows.launches - launches[1],
             b1.maxmin_matmul_fused.launches - launches[2])
+    rounds = gpu.total_rounds - rounds0
+    contractions = gpu.executor.ell_contractions_total - contractions0
     ell = layout.get("adj_layout") == "ell"
-    assert runs == ((0, gpu.total_rounds, 0) if ell else (gpu.total_rounds, 0, 0))
+    # one B5 launch per frontier round and per J chunk of a dense round (one
+    # chunk at this size)
+    assert runs == ((0, contractions, 0) if ell else (rounds, 0, 0))
+    assert contractions == (rounds if ell else 0)
 
 
 def test_legacy_closure_on_card_equals_plain(cuda):
