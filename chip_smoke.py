@@ -143,6 +143,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    levels against its plain versions, whose decoded result is the float
    closure mapped through the grid; ``valid_pairs`` at phase 4's clock
    equals phase 4's dense engine's valid pairs for Q1.
+13. the supervised service (``ServiceSupervisor``: write-ahead log,
+   async snapshots every 8 batches of 8 sgts, crash -> restore -> WAL
+   replay with ``verify_replay``) over phase 4's configuration and the
+   first 512 inserts of its stream, the three Q3 conflict edges placed
+   after the chaos run's last committed snapshot. A clean run, then a
+   chaos run that crashes before dispatch, during the replay, after
+   dispatch (of the last batch, after Q3's fallback), mid-snapshot at
+   each of ``shards``, ``manifest`` and ``rename`` (the last one after
+   the fallback), and raises one transient error. Asserts the chaos run's
+   result and invalidation streams and final results equal the clean
+   run's, every fault fired, Q3's simple lane ended on the host RSPQ in
+   both, every restore left each executor tensor on the card, and B1 ran
+   once per closure round of every service the runs built. Then the
+   breaker leg: phase 8's sparse configuration at n_slots=2048 on
+   ``so_like(n_vertices=2048, rate=50)``, clean and under a
+   ``CircuitBreaker`` that trips to the dense fallbacks at any overflow
+   and re-arms after one quiet interval: equal final results, and B5, B6
+   (sparse services) and B1 (dense ones) as often as the services'
+   counters say. Prints per snapshot the seconds the caller blocks, the
+   background write's seconds and bytes; per recovery ``recovery_s``, the
+   replayed events, ``replay_eps``, and the restore split into the npz
+   read and ``adopt_state``/placement; the WAL's append + fsync per batch;
+   sgts/s beside phase 4's; each line with ``nvidia-smi``'s name and power
+   limit. The checkpoint directories live under ``build/`` and are removed.
 
 The last three lines of standard output are the kernels JSON line, the
 ``nvidia-smi`` name/power-limit line, and the ``{"ok": true, ...}`` line.
@@ -209,6 +233,11 @@ BUCKET_LEVELS = 8         # phase 10's BucketBackend(n_levels=8): T = 9
 ELL_SLOTS = 8192          # the frontier + ELL service's n_slots (phases 6-10)
 ELL_LAYOUT = dict(frontier="auto", frontier_cap=4, adj_layout="ell", ell_cap=2)
 RS_DIST = dict(dist_layout="row_sparse", dist_cap=4)   # phases 8 and 10
+SUPERVISED_INSERTS = 512  # phase 13: the first inserts of phase 4's stream
+SUPERVISED_BATCH = 8      # phase 13: sgts a WAL record (a supervisor batch)
+SUPERVISED_CKPT_EVERY = 8  # phase 13: batches between snapshots (<= 8 of them)
+BREAKER_INSERTS = 512     # phase 13's breaker leg
+BREAKER_HEALTH_EVERY = 8  # batches a health interval in the breaker leg
 
 
 def fail(msg: str) -> None:
@@ -918,8 +947,9 @@ def main() -> None:
     dense_s = sum(svc.stats["Q1"].latencies_us) / 1e6
     ref_s = sum(sum(svc.stats[f"{name}_ref"].latencies_us)
                 for name in queries) / 1e6
+    e2e_sgts_s = len(tuples) / wall   # phase 13 prints it beside its own
     print(f"[e2e] {len(tuples)} sgts in {wall:.3f} s = "
-          f"{len(tuples) / wall:.3f} sgts/s; dispatch p50 {p50 / 1e3:.3f} ms, "
+          f"{e2e_sgts_s:.3f} sgts/s; dispatch p50 {p50 / 1e3:.3f} ms, "
           f"p99 {p99 / 1e3:.3f} ms", flush=True)
     print(f"[e2e] {steps} dispatches, {rounds} closure rounds "
           f"({rounds / steps:.3f} per dispatch), host syncs "
@@ -982,6 +1012,11 @@ def main() -> None:
     # -- 12. the legacy single-query round --------------------------------------
     legacy = legacy_phase(torch, queries["Q1"], legacy_in, device=None)
 
+    # -- 13. the supervised service: WAL, checkpoints, crash recovery ----------
+    sup13 = supervised_phase(torch, queries, smi_line, args.edges + PROFILE_SGTS,
+                             device=None, n_slots=n_slots, n_vertices=n_slots,
+                             unsupervised_sgts_s=e2e_sgts_s)
+
     e5, b6p = b5_rows["frontier"], b6_rows["path"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
 
@@ -1004,7 +1039,11 @@ def main() -> None:
                       "bound_ms": t[1], "bound_by": t[2], "plain_ms": t[3],
                       "at_measured_minmax_rate_ms": t[4]}
                      for (tag, n_t, m_t), t in timings.items()],
-         "minmax_rate": rates},
+         "minmax_rate": rates,
+         # phase 13: its clean and chaos runs, and the breaker leg's dense
+         # intervals
+         "supervised": {"launches": sup13["b1_launches"],
+                        "breaker_launches": sup13["breaker_launches"]["b1"]}},
         row("B2 maxmin_matmul", "maxmin", "src/repro/kernels/maxmin/maxmin.py:67",
             legacy["b2_launches"], lvl_rows["B2"]["max_abs_err"], lvl_rows["B2"]),
         # B3's numbers are on the main path's own operands (phase 10's last
@@ -1027,14 +1066,18 @@ def main() -> None:
          # ELL + row-sparse run, one per frontier round and per dense chunk
          "s32": {"launches": bk_rs["launches"][2],
                  "max_abs_err": lvl_rows["B5-int32"]["max_abs_err"],
-                 **lvl_rows["B5-int32"]}},
+                 **lvl_rows["B5-int32"]},
+         # phase 13's breaker leg, its sparse intervals
+         "supervised": {"breaker_launches": sup13["breaker_launches"]["b5"]}},
         {**row("B6 rowsparse_gather", "rowsparse",
                "src/repro/kernels/rowsparse/rowsparse.py:40", rs["b6_launches"],
                rs_err, b6p),
          # ms and library_ms are device times; per call with the host's
          # enqueue, the host's time per call, and the synthetic shape beside
          "per_call": {k: b6p[k] for k in b6p if k not in keys},
-         "synthetic": b6_rows["synthetic"]},
+         "synthetic": b6_rows["synthetic"],
+         # phase 13's breaker leg, its sparse intervals
+         "supervised": {"breaker_launches": sup13["breaker_launches"]["b6"]}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
@@ -1972,6 +2015,371 @@ def legacy_phase(torch, expr: str, legacy_in, device=None):
           f"{out['b4_launches']}; decoded == the grid-mapped float closure",
           flush=True)
     return out
+
+
+def executor_tensors(x):
+    """Every tensor of an executor's arrays, through the ELL and row-sparse
+    leaves."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, tuple):
+        return [t for v in x for t in executor_tensors(v)]
+    return []
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+class SupervisionProbe:
+    """Host-clock instrumentation of phase 13 (restored on ``close``):
+    wraps the service's ``snapshot`` (the seconds the caller blocks) and
+    ``restore`` (its total, checking after each that every executor tensor
+    is on ``dev_type``), ``ckpt.restore`` (the npz read), the engine's
+    ``adopt_state`` (host padding and placement), ``ckpt._write`` (the
+    background write: seconds and bytes) and ``WriteAheadLog.append``
+    (append + fsync); and collects every service ``make`` builds."""
+
+    def __init__(self, dev_type: str):
+        from repro_torch.checkpoint import ckpt
+        from repro_torch.core.engine import BatchedDenseRPQEngine
+        from repro_torch.streaming.service import PersistentQueryService
+        from repro_torch.streaming.wal import WriteAheadLog
+
+        self.dev_type = dev_type
+        self.reset()
+        self._patched = []
+        probe = self
+
+        def timed(owner, name, sink):
+            orig = getattr(owner, name)
+
+            def wrapper(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = orig(*args, **kwargs)
+                sink(time.perf_counter() - t0, args, out)
+                return out
+
+            self._patched.append((owner, name, orig))
+            setattr(owner, name, wrapper)
+
+        def on_restore(dt, args, _out):
+            svc = args[0]
+            rec = probe.pending
+            probe.pending = {}
+            bad = [t.device for t in executor_tensors(svc._group.executor.arrays)
+                   if t.device.type != dev_type]
+            if bad:
+                fail(f"a restore placed executor tensors on {bad[:3]}, not "
+                     f"{dev_type}")
+            probe.restores.append({**rec, "total_s": dt})
+
+        timed(PersistentQueryService, "snapshot",
+              lambda dt, a, o: self.snapshots.append(dt))
+        timed(PersistentQueryService, "restore", on_restore)
+        timed(ckpt, "restore", lambda dt, a, o: self.pending.__setitem__("read_s", dt))
+        timed(BatchedDenseRPQEngine, "adopt_state",
+              lambda dt, a, o: self.pending.__setitem__("adopt_s", dt))
+        timed(WriteAheadLog, "append", lambda dt, a, o: self.wal.append(dt))
+        orig_write = ckpt._write
+
+        def write(directory, step, tree, extra, host_id, crash):
+            t0 = time.perf_counter()
+            try:
+                out = orig_write(directory, step, tree, extra, host_id, crash)
+            except ckpt.SimulatedCrash:
+                self.writes.append({"s": time.perf_counter() - t0, "bytes": None,
+                                    "crash": crash})
+                raise
+            self.writes.append({"s": time.perf_counter() - t0,
+                                "bytes": dir_bytes(out), "crash": None})
+            return out
+
+        self._patched.append((ckpt, "_write", orig_write))
+        ckpt._write = write
+
+    def reset(self):
+        self.snapshots, self.writes, self.restores, self.wal = [], [], [], []
+        self.pending = {}
+        self.services = []
+
+    def collect(self, make):
+        def wrapped(**overrides):
+            svc = make(**overrides)
+            self.services.append(svc)
+            return svc
+        return wrapped
+
+    def close(self):
+        for owner, name, orig in reversed(self._patched):
+            setattr(owner, name, orig)
+
+
+def register_phase4(svc, queries, n_slots: int):
+    """Phase 4's registrations: the 11 queries as one dense group, each
+    also a reference RAPQ engine, and the simple-path lanes of Q2 and Q3."""
+    for name, expr in queries.items():
+        svc.register(name, expr, engine="dense", n_slots=n_slots, batch_size=1)
+        svc.register(f"{name}_ref", expr, engine="reference")
+    for name in ("Q2", "Q3"):
+        svc.register(f"{name}_simple", queries[name], engine="dense",
+                     path_semantics="simple", n_slots=n_slots, batch_size=1)
+    return svc
+
+
+def supervised_phase(torch, queries, smi: str, n_edges: int, device=None,
+                     n_slots: int = 2048, n_vertices: int = 2048,
+                     n_inserts: int = SUPERVISED_INSERTS,
+                     breaker_inserts: int = BREAKER_INSERTS,
+                     unsupervised_sgts_s=None):
+    """Phase 13: ``ServiceSupervisor`` over phase 4's configuration and the
+    first ``n_inserts`` inserts of its stream (``n_edges`` over
+    ``n_vertices``, as phase 4 made it), a clean run and a chaos run, then
+    the breaker leg over phase 8's sparse configuration at ``n_slots``.
+    ``device``, ``n_slots`` (the vertex slots registered; they grow on
+    demand) and the sizes let the same code rehearse on the CPU at a small
+    size. Returns the launch counts."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels.maxmin import maxmin as b1
+    from repro_torch.streaming.generators import so_like, with_deletions
+    from repro_torch.streaming.service import PersistentQueryService, RSPQFallback
+    from repro_torch.streaming.stream import SGT
+    from repro_torch.streaming.supervisor import FaultPlan, ServiceSupervisor
+
+    on_card = device is None
+    window, slide, B, C = 20.0, 2.0, SUPERVISED_BATCH, SUPERVISED_CKPT_EVERY
+    work = ROOT / "build"
+    work.mkdir(exist_ok=True)
+    tag = f"[supervised] [{smi}]"
+
+    # phase 4's stream, cut at its n_inserts-th insert, with the three Q3
+    # conflict edges after the chaos run's last committed snapshot: its
+    # live dispatches are all batches but the one crashed before and the one
+    # crashed after dispatch, so its last snapshot ordinal is
+    # (n_batches - 2) // C (crashed at "rename"), and the one before commits
+    # at lsn (last - 1) * C + 1. No restore reads a snapshot taken after Q3's
+    # simple lane fell back (the clean run restores none).
+    all_tuples = list(with_deletions(so_like(n_vertices=n_vertices, n_edges=n_edges,
+                                             seed=42), ratio=0.02, seed=1))
+    cut = [i for i, s in enumerate(all_tuples) if s.op == "+"][n_inserts]
+    base = all_tuples[:cut]
+    n_batches = -(-(len(base) + 3) // B)
+    last = (n_batches - 2) // C
+    if last <= 4:
+        fail(f"{n_batches} batches hold too few snapshots for the chaos plan")
+    first = ((last - 1) * C + 1) * B       # first event after that snapshot
+    at = next((i for i, s in enumerate(base) if i >= first and s.op == "+"), None)
+    if at is None:
+        fail(f"no insert after the last committed snapshot of {n_batches} batches")
+    tuples = with_q3_conflict(SGT, base, sum(1 for s in base[at:] if s.op == "+"))
+    fallback_lsn = (at + 2) // B + 1
+
+    def make(**overrides):
+        svc = PersistentQueryService(window=window, slide=slide, device=device,
+                                     **overrides)
+        return register_phase4(svc, queries, n_slots)
+
+    probe = SupervisionProbe("cuda" if on_card else "cpu")
+    runs = {}
+    try:
+        for run in ("clean", "chaos"):
+            probe.reset()
+            plan = None
+            if run == "chaos":
+                plan = FaultPlan(crash_before_dispatch=[C + 3],
+                                 crash_during_replay=[C + 2],
+                                 crash_after_dispatch=[n_batches],
+                                 crash_mid_snapshot={2: "shards", 4: "manifest",
+                                                     last: "rename"},
+                                 transient_errors={C + 6: 1})
+            d = tempfile.mkdtemp(prefix=f"supervised_{run}_", dir=work)
+            try:
+                if on_card:
+                    torch.cuda.synchronize()
+                b1.maxmin_matmul_fused.launches = 0
+                t0 = time.perf_counter()
+                sup = ServiceSupervisor(probe.collect(make), d, batch_events=B,
+                                        ckpt_every=C, fault_plan=plan,
+                                        verify_replay=True)
+                final = sup.run(list(tuples))
+                if on_card:
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = b1.maxmin_matmul_fused.launches
+                on_disk = dir_bytes(d)
+                steps = sorted(p.name for p in Path(d).glob("step_*"))
+            finally:
+                shutil.rmtree(d, ignore_errors=True)
+            rounds = sum(s._group.executor.rounds_total for s in probe.services
+                         if s._group is not None)
+            if on_card and not 0 < launches == rounds:
+                fail(f"{run}: B1 launches ({launches}) != the closure rounds of "
+                     f"the {len(probe.services)} services built ({rounds})")
+            if plan is not None and not plan.exhausted:
+                fail(f"chaos: not every scheduled fault fired: {plan.__dict__}")
+            svc = sup.service
+            if not isinstance(svc._ref_engines.get("Q3_simple"), RSPQFallback):
+                fail(f"{run}: Q3's simple lane did not end on the host RSPQ")
+            bad = [n for n in queries if final[n] != final[f"{n}_ref"]]
+            if bad:
+                fail(f"{run}: dense results differ from the reference RAPQ for {bad}")
+            runs[run] = dict(sup=sup, final=final, launches=launches)
+            n_ev = len(tuples)
+            print(f"{tag} {run}: {n_ev} sgts in {n_batches} batches of {B}, "
+                  f"{wall:.3f} s = {n_ev / wall:.3f} sgts/s"
+                  f"{f' (phase 4 unsupervised: {unsupervised_sgts_s:.3f})' if unsupervised_sgts_s else ''}; "
+                  f"{len(probe.services)} services built, {sup.restarts} restarts, "
+                  f"{sup.retries} retries; B1 launches {launches} == closure "
+                  f"rounds {rounds}; {len(steps)} step dirs, {on_disk} bytes on "
+                  f"disk (removed); Q3 simple fell back at lsn {fallback_lsn}",
+                  flush=True)
+            wal_ms = sorted(1e3 * x for x in probe.wal)
+            print(f"{tag} {run}: WAL append + fsync {sum(wal_ms) / len(wal_ms):.3f} "
+                  f"ms a batch (median {wal_ms[len(wal_ms) // 2]:.3f}, max "
+                  f"{wal_ms[-1]:.3f}) over {len(wal_ms)} appends", flush=True)
+            writes = [w for w in probe.writes if w["crash"] is None]
+            for i, (blk, w) in enumerate(zip(probe.snapshots, probe.writes)):
+                print(f"{tag} {run} snapshot {i + 1}: caller blocked {blk:.3f} s "
+                      f"(drain + device->host), background write {w['s']:.3f} s, "
+                      f"{w['bytes'] if w['bytes'] is not None else 'crashed after ' + w['crash']}"
+                      f"{' bytes' if w['bytes'] is not None else ''}", flush=True)
+            for r in sup.recoveries:
+                # every attempt restores once; one that crashed during its
+                # replay left no Recovery, so match by attempt number
+                rec = probe.restores[r.restart - 1]
+                print(f"{tag} {run} recovery {r.restart}: recovery_s "
+                      f"{r.recovery_s:.3f}, replayed {r.replayed_events} events in "
+                      f"{r.replayed_records} batches = {r.replay_eps:.3f} events/s; "
+                      f"restore of step {r.restored_step} {rec['total_s']:.3f} s "
+                      f"(npz read {rec['read_s']:.3f} s, adopt_state/place "
+                      f"{rec['adopt_s']:.3f} s); executor tensors on "
+                      f"{probe.dev_type}", flush=True)
+            if writes and run == "clean":
+                runs[run]["snapshot_bytes"] = writes[-1]["bytes"]
+        clean, chaos = runs["clean"], runs["chaos"]
+        cs, xs = clean["sup"], chaos["sup"]
+        if xs.result_stream() != cs.result_stream():
+            fail("the chaos run's result stream differs from the clean run's")
+        if xs.invalidation_stream() != cs.invalidation_stream():
+            fail("the chaos run's invalidation stream differs from the clean run's")
+        if chaos["final"] != clean["final"]:
+            fail("the chaos run's final results differ from the clean run's")
+        # five crashes, one more during a replay: six attempts, five recoveries
+        if (xs.restarts, len(xs.recoveries)) != (6, 5):
+            fail(f"expected 6 restarts and 5 recoveries, got {xs.restarts} and "
+                 f"{len(xs.recoveries)}")
+        print(f"{tag} chaos == clean: result and invalidation streams over "
+              f"{len(cs.result_stream())} batches and final results of all "
+              f"{len(clean['final'])} queries; every fault fired; Q3 simple on "
+              f"the host RSPQ in both ({len(clean['final']['Q3_simple'])} pairs)",
+              flush=True)
+        out = {"b1_launches": clean["launches"] + chaos["launches"],
+               "snapshot_bytes": clean.get("snapshot_bytes")}
+        out.update(breaker_leg(torch, queries, tag, probe, device, n_slots,
+                               breaker_inserts))
+    finally:
+        probe.close()
+    return out
+
+
+def breaker_leg(torch, queries, tag: str, probe, device, n_slots: int,
+                n_inserts: int):
+    """Phase 13's breaker leg: phase 8's sparse configuration supervised
+    clean and with a ``CircuitBreaker`` that trips to the dense fallbacks
+    at any overflow and re-arms after one quiet interval. The final results
+    must equal the clean run's; B5 and B6 must run as often as the sparse
+    services' counters say and B1 as the dense ones' rounds."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels.ell import ell as b5
+    from repro_torch.kernels.maxmin import maxmin as b1
+    from repro_torch.kernels.rowsparse import rowsparse as b6
+    from repro_torch.streaming.generators import so_like, with_deletions
+    from repro_torch.streaming.service import PersistentQueryService
+    from repro_torch.streaming.supervisor import CircuitBreaker, ServiceSupervisor
+
+    on_card = device is None
+    tuples = list(with_deletions(so_like(n_vertices=n_slots, n_edges=n_inserts,
+                                         seed=7, rate=50.0), ratio=0.02, seed=5))
+
+    def make(**overrides):
+        kw = {**ELL_LAYOUT, **RS_DIST, **overrides}
+        svc = PersistentQueryService(window=20.0, slide=2.0, device=device, **kw)
+        for name, expr in queries.items():
+            svc.register(name, expr, engine="dense", n_slots=n_slots, batch_size=1)
+            svc.register(f"{name}_ref", expr, engine="reference")
+        return svc
+
+    finals, counts = {}, {}
+    for run in ("clean", "breaker"):
+        probe.reset()
+        breaker = (CircuitBreaker(trip_threshold=0.0, rearm_after=1)
+                   if run == "breaker" else None)
+        b1.maxmin_matmul_fused.launches = 0
+        b5.ell_contract_rows.launches = 0
+        b6.rowsparse_gather.launches = 0
+        d = tempfile.mkdtemp(prefix=f"breaker_{run}_", dir=ROOT / "build")
+        try:
+            t0 = time.perf_counter()
+            sup = ServiceSupervisor(probe.collect(make), d, batch_events=SUPERVISED_BATCH,
+                                    ckpt_every=10 ** 9, health_every=BREAKER_HEALTH_EVERY,
+                                    breaker=breaker, verify_replay=True)
+            finals[run] = sup.run(list(tuples))
+            if on_card:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        want = {"b1": 0, "b5": 0, "b6": 0}
+        n_dense = 0
+        for svc in probe.services:
+            ex = svc._group.executor
+            if ex.adj_layout == "dense":
+                n_dense += 1
+                want["b1"] += ex.rounds_total
+            else:
+                f = ex.frontier_stats
+                want["b5"] += ex.ell_contractions_total
+                want["b6"] += ((f["dispatches"] - f["delete_dispatches"])
+                               - (f["fallbacks"] - f["delete_fallbacks"]))
+        got = {"b1": b1.maxmin_matmul_fused.launches,
+               "b5": b5.ell_contract_rows.launches,
+               "b6": b6.rowsparse_gather.launches}
+        if on_card and got != want:
+            fail(f"breaker leg {run}: launches {got} != the services' counters {want}")
+        bad = [n for n in queries if finals[run][n] != finals[run][f"{n}_ref"]]
+        if bad:
+            fail(f"breaker leg {run}: results differ from the reference RAPQ for {bad}")
+        counts[run] = got
+        actions = [a for _i, a, _r in breaker.log] if breaker else []
+        print(f"{tag} breaker leg {run}: {len(tuples)} sgts in {wall:.3f} s = "
+              f"{len(tuples) / wall:.3f} sgts/s; {len(probe.services)} services "
+              f"({n_dense} dense); breaker {actions or 'none'}; launches B1 "
+              f"{got['b1']}, B5 {got['b5']}, B6 {got['b6']} == the services' "
+              f"counters", flush=True)
+        for blk, w in zip(probe.snapshots, probe.writes):
+            print(f"{tag} breaker leg handover snapshot: {blk:.3f} s "
+                  f"(synchronous), write {w['s']:.3f} s, {w['bytes']} bytes",
+                  flush=True)
+        for rec in probe.restores:
+            print(f"{tag} breaker leg handover restore {rec['total_s']:.3f} s (npz "
+                  f"read {rec['read_s']:.3f} s, adopt_state/place "
+                  f"{rec['adopt_s']:.3f} s)", flush=True)
+        if run == "breaker":
+            if "trip" not in actions or "rearm" not in actions:
+                fail(f"the breaker did not trip and re-arm: {breaker.log}")
+            if on_card and min(got.values()) <= 0:
+                fail(f"a kernel of the breaker leg never ran: {got}")
+    if finals["breaker"] != finals["clean"]:
+        fail("the breaker run's final results differ from the clean run's")
+    print(f"{tag} breaker leg: final results == the clean run's for all "
+          f"{len(finals['clean'])} queries", flush=True)
+    return {"breaker_launches": counts["breaker"]}
 
 
 if __name__ == "__main__":

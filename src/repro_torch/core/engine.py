@@ -46,6 +46,7 @@ from .executor import (
     LocalExecutor,
     QueryTables,
     check_options,
+    init_batched_arrays,
 )
 from .semiring import NEG_INF, BatchedTransitionTable, TransitionTable
 
@@ -76,6 +77,18 @@ class EngineArrays(NamedTuple):
     dist: torch.Tensor     # (N, N, K) f32
     emitted: torch.Tensor  # (N, N) bool
     now: torch.Tensor      # () f32
+
+
+def init_arrays(n_slots: int, n_labels: int, k: int,
+                device: DeviceLike = None) -> EngineArrays:
+    """Empty single-query state (the Q=1 slice of the batched one)."""
+    b = init_batched_arrays(n_slots, n_labels, 1, k, device)
+    return EngineArrays(b.adj, b.dist[0], b.emitted[0], b.now)
+
+
+def _host(x) -> np.ndarray:
+    """A state leaf (tensor or array) as a host array."""
+    return device_get(x) if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def _conflict_possible(
@@ -664,18 +677,25 @@ class BatchedDenseRPQEngine:
 
     # -- state export / import ------------------------------------------------
 
+    def state_tensors(self) -> Dict[str, torch.Tensor]:
+        """The device state as a dict of tensors in the canonical dense
+        layout (the live tensors where the layout is dense; checkpoints
+        copy them)."""
+        self._drain_pending()
+        a = self.executor.arrays
+        return {"adj": self.executor.dense_adj(),
+                "dist": self.executor.dense_dist(),
+                "emitted": a.emitted, "now": a.now}
+
     def state_arrays(self) -> Dict[str, np.ndarray]:
         """The device state as a dict of host numpy arrays (the layout the
         JAX engine's ``state_arrays`` has after ``np.asarray``)."""
-        self._drain_pending()
-        a = self.executor.arrays
-        return {"adj": device_get(self.executor.dense_adj()),
-                "dist": device_get(self.executor.dense_dist()),
-                "emitted": device_get(a.emitted),
-                "now": device_get(a.now)}
+        return {k: device_get(v) for k, v in self.state_tensors().items()}
 
     def load_state_arrays(self, state: Dict[str, object]) -> None:
-        """Exact-shape reload (same capacities) from host arrays."""
+        """Exact-shape reload (same capacities) from host arrays. For
+        checkpoints of a group with other capacities, use
+        :meth:`adopt_state`."""
         self._drain_pending()
         shapes = {"adj": self.executor.adj_shape,
                   "dist": self.executor.dist_shape,
@@ -687,6 +707,58 @@ class BatchedDenseRPQEngine:
                     f"state {key!r} has shape {got}, this engine holds {shape}")
         self.executor.place({k: np.asarray(v) for k, v in state.items()})
         self._host_now = float(np.asarray(state["now"]))
+
+    def adopt_state(
+        self,
+        state: Dict[str, object],
+        lane_names: Sequence[Optional[str]],
+        labels: Sequence[str],
+    ) -> None:
+        """Load checkpointed state (tensors or host arrays) whose
+        Q/K/label/vertex capacities may differ from this engine's. Lanes
+        are matched by query NAME, adjacency rows by label NAME; slot
+        indices are positional (the interner refers to them), so a smaller
+        vertex capacity is padded and a LARGER checkpoint grows this engine
+        first. The live query sets must agree (raises ``ValueError``).
+        Labels only the checkpoint has are appended. The padded host
+        arrays are placed through the executor (an ELL or row-sparse
+        executor packs them), on this engine's device."""
+        self._drain_pending()
+        adj_ck = _host(state["adj"])
+        dist_ck = _host(state["dist"])
+        emitted_ck = _host(state["emitted"])
+        ck_n = adj_ck.shape[1]
+        if ck_n > self.n_slots:
+            self._grow_slots(_round_up(ck_n, self.executor.n_multiple))
+        ours = {spec.name: qi for qi, spec in self.live_items()}
+        theirs = {name: qi for qi, name in enumerate(lane_names) if name is not None}
+        if set(ours) != set(theirs):
+            raise ValueError(
+                f"checkpointed query set {sorted(theirs)} does not match "
+                f"registered set {sorted(ours)}"
+            )
+        for lab in labels:
+            if lab not in self._label_index:
+                self._label_index[lab] = len(self.labels)
+                self.labels = self.labels + (lab,)
+        self._rebuild_tables()
+        self._repad_arrays()
+        adj = np.full(self.executor.adj_shape, NEG_INF, np.float32)
+        for li_ck, lab in enumerate(labels):
+            adj[self._label_index[lab], :ck_n, :ck_n] = adj_ck[li_ck]
+        dist = np.full(self.executor.dist_shape, NEG_INF, np.float32)
+        emitted = np.zeros(tuple(self.executor.arrays.emitted.shape), bool)
+        # states beyond a lane's own dfa.k are -inf padding (no transition
+        # scatters into them), so the K prefix carries everything real in
+        # either direction
+        kk = min(dist_ck.shape[3], self.k)
+        for name, qi in ours.items():
+            dist[qi, :ck_n, :ck_n, :kk] = dist_ck[theirs[name], :, :, :kk]
+            emitted[qi, :ck_n, :ck_n] = emitted_ck[theirs[name]]
+        now = np.float32(_host(state["now"]))
+        self.executor.place(
+            {"adj": adj, "dist": dist, "emitted": emitted, "now": now})
+        self._host_now = float(now)
 
     def interner_state(self) -> Dict[str, object]:
         """Vertex interner as JSON-able metadata with type tags."""

@@ -28,9 +28,22 @@ bounded async-decode FIFO (``async_decode``/``async_depth``),
 (``adj_layout``/``ell_cap``, per-interval snapshots in
 :attr:`PersistentQueryService.adjacency_log`) and the row-sparse dist
 (``dist_layout``/``dist_cap``, per-interval snapshots in
-:attr:`PersistentQueryService.dist_log`). Not yet ported, and raising
-with their ROADMAP item: ``snapshot``/``restore`` (A10) and
-``executor="mesh"`` (A11).
+:attr:`PersistentQueryService.dist_log`).
+
+Fault tolerance: :meth:`PersistentQueryService.snapshot` checkpoints the
+service through :mod:`repro_torch.checkpoint.ckpt` in the JAX package's
+format — the dense group's state in the canonical dense layout, its live
+query set lane by lane, label order, interner, results and learned
+capacities in the manifest, reference engines as pickled leaves — and
+:meth:`~PersistentQueryService.restore` re-attaches a freshly registered
+service, matching lanes by query name and adjacency rows by label name,
+so either package restores what the other wrote, across capacity and
+layout differences. A query that fell back to the reference RSPQ
+checkpoints as a reference engine, so a service restoring such a
+snapshot registers it with ``engine="reference"``; registered as a dense
+simple lane again, the live query sets differ (``ValueError``), as in the
+JAX package. Not yet ported, and
+raising with its ROADMAP item: ``executor="mesh"`` (A11).
 """
 from __future__ import annotations
 
@@ -39,10 +52,12 @@ import dataclasses
 import time
 from typing import Deque, Dict, List, Optional, Set, Tuple, Union
 
+import numpy as np
+
 from ..core.automaton import compile_query
 from ..core.contraction import resolve_backend
 from ..core.engine import BatchedDenseRPQEngine, PendingResults, RegisteredQuery
-from ..core.executor import Executor, LocalExecutor, check_options
+from ..core.executor import Executor, LocalExecutor, _next_pow2, check_options
 from ..core.reference import RAPQ, RSPQ
 from ..device import DeviceLike, resolve_device
 
@@ -565,12 +580,122 @@ class PersistentQueryService:
         eng = self._ref_engines.get(name)
         return bool(getattr(eng, "conflicts_detected", 0)) if eng else False
 
-    # -- state persistence (not yet ported) -----------------------------------
+    # -- state persistence ----------------------------------------------------
 
-    def snapshot(self, directory: str, step: int, **kwargs) -> None:
-        raise NotImplementedError(
-            "PersistentQueryService.snapshot is not yet ported (ROADMAP A10)")
+    def snapshot(self, directory: str, step: int, *,
+                 wal_lsn: Optional[int] = None,
+                 extra_meta: Optional[Dict[str, object]] = None,
+                 async_save: bool = False,
+                 _crash_after: Optional[str] = None) -> None:
+        """Checkpoint the whole service. ``wal_lsn`` records the
+        write-ahead-log position this snapshot covers (recovery replays
+        only records past it); ``async_save=True`` defers the file IO to a
+        background thread (the device->host copy still happens here, so
+        the state is consistent whatever the stream does next);
+        ``_crash_after`` is the chaos harness's mid-save kill switch
+        (``ckpt.save``'s stages).
+
+        The dense group's deferred-decode FIFO is drained FIRST: an
+        in-flight async-decode batch has already mutated device state, so
+        saving before its results land would snapshot an emitted mask
+        ahead of the recorded results, and restore + replay would drop
+        those pairs."""
+        from ..checkpoint import ckpt
+
+        self._ensure_group()
+        if self._group is not None:
+            self._group._drain_pending()
+        state: Dict[str, object] = {}
+        extra: Dict[str, object] = {
+            "step": step,
+            "next_expiry": self._next_expiry,
+            "reference": sorted(self._ref_engines),
+        }
+        if wal_lsn is not None:
+            extra["wal_lsn"] = int(wal_lsn)
+        if extra_meta:
+            # caller metadata (the supervisor's churn catalog) rides the
+            # manifest; reserved keys stay ours
+            for k, v in extra_meta.items():
+                extra.setdefault(k, v)
+        if self._group is not None:
+            ex = self._group.executor
+            state["dense_group"] = self._group.state_tensors()
+            extra["dense"] = {
+                # the LIVE query set, lane by lane (None = inert padding)
+                "order": [s.name if s is not None else None
+                          for s in self._group.lane_specs],
+                "labels": list(self._group.labels),
+                "interner": self._group.interner_state(),
+                # learned capacities (pow2-bucketed): a restored service
+                # starts at these instead of re-learning them
+                "capacities": {
+                    "frontier_cap": int(ex.frontier_cap),
+                    "ell_cap": int(ex.ell_cap),
+                    "dist_cap": int(ex.dist_cap),
+                    "dist_ovf_cap": (int(ex.dist_ovf_cap)
+                                     if ex.dist_ovf_cap is not None else None),
+                },
+                **self._group.results_state(),
+            }
+        for name, eng in self._ref_engines.items():
+            state[f"refeng.{name}"] = ckpt.pickle_leaf(eng)
+        if async_save:
+            ckpt.async_save(directory, step, state, extra=extra,
+                            _crash_after=_crash_after)
+        else:
+            ckpt.save(directory, step, state, extra=extra,
+                      _crash_after=_crash_after)
 
     def restore(self, directory: str) -> int:
-        raise NotImplementedError(
-            "PersistentQueryService.restore is not yet ported (ROADMAP A10)")
+        """Re-attach to the latest committed checkpoint under
+        ``directory`` (written by this package or the JAX one); returns
+        its step. The registered query set must be the checkpoint's."""
+        from ..checkpoint import ckpt
+
+        self._ensure_group()
+        like: Dict[str, object] = {}
+        if self._group is not None:
+            # dtypes only (shapes come from the file): the arrays stay on
+            # the host until adopt_state places them
+            like["dense_group"] = {
+                "adj": np.zeros((0,), np.float32),
+                "dist": np.zeros((0,), np.float32),
+                "emitted": np.zeros((0,), bool),
+                "now": np.zeros((), np.float32),
+            }
+        for name in self._ref_engines:
+            like[f"refeng.{name}"] = ckpt.pickle_like()
+        state, extra = ckpt.restore(directory, like=like)
+        if self._group is not None:
+            meta = extra["dense"]
+            # adopt the snapshot's learned capacities first (never shrink),
+            # so the placement below packs at the occupancy already learned
+            caps = meta.get("capacities", {})
+            ex = self._group.executor
+            if caps.get("frontier_cap"):
+                ex.frontier_cap = max(
+                    ex.frontier_cap, _next_pow2(int(caps["frontier_cap"])))
+            if caps.get("ell_cap"):
+                ex.ell_cap = max(ex.ell_cap, _next_pow2(int(caps["ell_cap"])))
+            if caps.get("dist_cap"):
+                ex.dist_cap = max(ex.dist_cap,
+                                  _next_pow2(int(caps["dist_cap"])))
+            if caps.get("dist_ovf_cap"):
+                prev = ex.dist_ovf_cap if ex.dist_ovf_cap is not None else 1
+                ex.dist_ovf_cap = max(
+                    prev, _next_pow2(int(caps["dist_ovf_cap"])))
+            # lane-by-name adoption across Q/K/label/slot padding and
+            # layouts; raises if the LIVE query sets differ
+            self._group.adopt_state(
+                state["dense_group"],
+                meta["order"],
+                meta.get("labels", list(self._group.labels)),
+            )
+            self._group.load_interner(meta["interner"])
+            self._group.load_results_state(meta)
+        for name in self._ref_engines:
+            self._ref_engines[name] = ckpt.unpickle_leaf(state[f"refeng.{name}"])
+        self._next_expiry = float(extra.get("next_expiry", self.slide))
+        self._ingest_started = True
+        return int(extra["step"])

@@ -2,7 +2,9 @@
 versions on the card (B5 on float32 timestamps and on int32 levels), and
 the port's engine on the card against itself on the CPU (dense and
 row-sparse dist, the float and the bucket backend, and the legacy
-single-query closure).
+single-query closure); the service's checkpoints on the card (restored on
+the card with every executor tensor there, and across card and CPU) and
+the supervised service's crash-recovery identity on the card.
 
 Marked ``gpu``; each skips (from the ``cuda`` fixture, never at import or
 collection) where there is no card. On the card:
@@ -697,3 +699,102 @@ def test_legacy_closure_on_card_equals_plain(cuda):
     torch.cuda.synchronize()
     assert b3.bucket_maxmin.launches - before == n_trans * rounds_l
     assert torch.equal(out_l, closure(d_l, a_l, tt, BucketBackend(8, use_kernels=False))[0])
+
+
+# -- checkpoints and supervision on the card ---------------------------------------
+
+SERVICE_LAYOUTS = [dict(), dict(frontier="on", frontier_cap=16, adj_layout="ell",
+                                ell_cap=6, dist_layout="row_sparse", dist_cap=24)]
+
+
+def _ckpt_service(device, **layout):
+    from repro_torch.streaming.service import PersistentQueryService
+
+    svc = PersistentQueryService(window=20.0, slide=2.0, device=device, **layout)
+    svc.register("d_arb", "a2q . c2a*", n_slots=48)
+    svc.register("d_plus", "(a2q | c2a)+", n_slots=48)
+    svc.register("d_smp", "(a2q | c2a | c2q)*", path_semantics="simple", n_slots=48)
+    svc.register("r_arb", "a2q . c2a*", engine="reference")
+    return svc
+
+
+def _ckpt_tuples():
+    return list(with_deletions(so_like(24, 110, seed=13), ratio=0.04, seed=7))
+
+
+def _executor_tensors(x):
+    """Every tensor of the executor's arrays (through the ELL and
+    row-sparse leaves)."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, tuple):
+        return [t for v in x for t in _executor_tensors(v)]
+    return []
+
+
+def _snapshot_then_restore(writer_device, reader_device, layout):
+    import tempfile
+
+    from repro_torch.streaming.stream import Stream
+
+    tuples = _ckpt_tuples()
+    half = len(tuples) // 2
+    writer = _ckpt_service(writer_device, **layout)
+    writer.ingest(Stream(tuples[:half]))
+    with tempfile.TemporaryDirectory() as d:
+        writer.snapshot(d, step=half)
+        tail = writer.ingest(Stream(tuples[half:]))
+        reader = _ckpt_service(reader_device, **layout)
+        assert reader.restore(d) == half
+    tensors = _executor_tensors(reader.queries["d_arb"].executor.arrays)
+    assert tensors and {t.device.type for t in tensors} == {torch.device(reader_device).type}
+    tail2 = reader.ingest(Stream(tuples[half:]))
+    for name in ("d_arb", "d_plus", "d_smp", "r_arb"):
+        assert tail2[name] == tail[name], name
+        assert tail2.invalidated[name] == tail.invalidated[name], name
+        assert reader.results(name) == writer.results(name), name
+
+
+@pytest.mark.parametrize("layout", SERVICE_LAYOUTS)
+def test_snapshot_on_card_restores_on_card(cuda, layout):
+    _snapshot_then_restore(cuda, cuda, layout)
+
+
+@pytest.mark.parametrize("direction", ["card-to-cpu", "cpu-to-card"])
+def test_checkpoint_crosses_card_and_cpu(cuda, direction):
+    devices = (cuda, "cpu") if direction == "card-to-cpu" else ("cpu", cuda)
+    _snapshot_then_restore(*devices, SERVICE_LAYOUTS[1])
+    _snapshot_then_restore(*devices, SERVICE_LAYOUTS[0])
+
+
+@pytest.mark.parametrize("layout", SERVICE_LAYOUTS)
+def test_crash_recovery_identity_on_card(cuda, layout):
+    """Every fault point of tests/test_torch_supervisor.py on the card: the
+    chaos run's streams equal the clean run's on the card and on the CPU."""
+    import tempfile
+
+    from repro_torch.streaming.supervisor import FaultPlan, ServiceSupervisor
+
+    plan_kw = dict(crash_before_dispatch=[3], crash_after_dispatch=[7],
+                   crash_during_replay=[9],
+                   crash_mid_snapshot={1: "shards", 2: "manifest", 3: "rename"},
+                   transient_errors={6: 2})
+
+    def run(device, plan=None):
+        def make(**extra):
+            return _ckpt_service(device, **{**layout, **extra})
+
+        with tempfile.TemporaryDirectory() as d:
+            sup = ServiceSupervisor(make, d, batch_events=8, ckpt_every=4,
+                                    fault_plan=plan)
+            final = sup.run(_ckpt_tuples())
+            tensors = _executor_tensors(sup.service.queries["d_arb"].executor.arrays)
+            assert {t.device.type for t in tensors} == {torch.device(device).type}
+            return final, sup.result_stream(), sup.invalidation_stream(), sup
+
+    clean_cpu = run("cpu")[:3]
+    assert run(cuda)[:3] == clean_cpu
+    plan = FaultPlan(**plan_kw)
+    *chaos, sup = run(cuda, plan)
+    assert plan.exhausted and sup.restarts >= 4 and sup.recoveries
+    assert tuple(chaos) == clean_cpu

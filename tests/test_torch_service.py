@@ -3,11 +3,12 @@ scenario of examples/streaming_service.py (mixed dense/reference engines,
 both path semantics, 2% explicit deletions, two ingest calls) scaled down
 and without the snapshot, compared report for report. Also: the RSPQ
 fallback, the async-decode FIFO, adaptive batching, the frontier and ELL
-options with their telemetry logs, the bucket backend, the options not
+options with their telemetry logs, the bucket backend, the option not
 yet ported, and that importing the port loads neither JAX nor
 ``repro``."""
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import pytest
@@ -101,10 +102,11 @@ def test_unported_paths_raise():
         with pytest.raises(ValueError):
             PersistentQueryService(window=5.0, slide=1.0, device="cpu", **kw)
     svc = PersistentQueryService(window=5.0, slide=1.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        svc.snapshot("unused", step=0)
-    with pytest.raises(NotImplementedError, match="A10"):
-        svc.restore("unused")
+    # snapshot and restore are ported (tests/test_torch_checkpoint.py)
+    with tempfile.TemporaryDirectory() as d:
+        svc.snapshot(d, step=4)
+        assert PersistentQueryService(window=5.0, slide=1.0,
+                                      device="cpu").restore(d) == 4
     # the bucket backend is ported: by name and as an instance
     svc.register("q", "a*", backend="mxu_bucket")
     svc.register("r", "b*", backend=BucketBackend(8))
@@ -158,7 +160,9 @@ def test_import_loads_neither_jax_nor_the_reference_package():
             "repro_torch.kernels.ell.ell, repro_torch.core.sparse_adj, "
             "repro_torch.core.sparse_dist, "
             "repro_torch.kernels.rowsparse.rowsparse, "
-            "repro_torch.kernels.bucket.bucket, repro_torch.kernels.bucket.ops; "
+            "repro_torch.kernels.bucket.bucket, repro_torch.kernels.bucket.ops, "
+            "repro_torch.checkpoint.ckpt, repro_torch.streaming.wal, "
+            "repro_torch.streaming.supervisor, repro_torch.distributed.fault; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.')]; "
             "assert not bad, bad")
