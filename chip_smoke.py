@@ -167,6 +167,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    read and ``adopt_state``/placement; the WAL's append + fsync per batch;
    sgts/s beside phase 4's; each line with ``nvidia-smi``'s name and power
    limit. The checkpoint directories live under ``build/`` and are removed.
+14. the mesh executor (``MeshExecutor``, one process, four shards over
+   the visible cards in turn: ``["cuda:0"] * 4`` on one card) through the service in phase 4's configuration
+   (the 11 queries and the simple lanes of Q2 and Q3, no reference
+   engines), four legs: (a) lanes (4x1 grid) on phase 4's whole stream:
+   every query's results, per-event result logs and per-event deletion
+   invalidations equal phase 4's, Q3's simple lane falls back at the same
+   stream time with the same log, and the sync rounds equal phase 4's
+   closure rounds; (b) vertices (2x2: two lane shards, each over two model
+   peers that fold their partials with max) and (c) the sparse layouts
+   (2x2, ``frontier="auto"``, ELL, row-sparse: densified per dispatch, so
+   cut to the first 512 inserts at n_slots=2048 from phase 8's 8192; also
+   against a local run of that configuration) on phase 4's first 512
+   inserts, against phase 4's log prefix; (d) ``BucketBackend(8)`` on the
+   lane grid over that prefix against phase 10's dense bucket run. Each
+   leg asserts ``shard_rounds + skipped == n_shards x sync_rounds`` (with
+   skipped > 0 on the 4x1 grid; each of the 2x2 grid's two lane shards
+   holds a lane that closes over every label, Q4 or Q9, so they may
+   converge together), B1 (B3 in (d)) launched exactly n_model x shard_rounds
+   times and B5 and B6 never, and prints sgts/s and dispatch p50/p99
+   beside phase 4's, the shard-rounds run and skipped, peak device memory
+   and ``nvidia-smi``'s name and power limit.
 
 The last three lines of standard output are the kernels JSON line, the
 ``nvidia-smi`` name/power-limit line, and the ``{"ok": true, ...}`` line.
@@ -238,6 +259,8 @@ SUPERVISED_BATCH = 8      # phase 13: sgts a WAL record (a supervisor batch)
 SUPERVISED_CKPT_EVERY = 8  # phase 13: batches between snapshots (<= 8 of them)
 BREAKER_INSERTS = 512     # phase 13's breaker leg
 BREAKER_HEALTH_EVERY = 8  # batches a health interval in the breaker leg
+MESH_DEVICES = 4          # phase 14: shards over ["cuda:0"] * 4
+MESH_PREFIX_INSERTS = 512  # phase 14's legs (b)-(d): phase 4's first inserts
 
 
 def fail(msg: str) -> None:
@@ -889,6 +912,7 @@ def main() -> None:
           f"{n_del} deletions = {len(tuples)} sgts over {tuples[-1].ts:.1f} s "
           "of stream time", flush=True)
     ex = group.executor
+    rec4 = record(svc)   # phase 14's per-event invalidations and fallbacks
     rounds0, steps0, syncs0 = ex.rounds_total, ex.steps, group.host_syncs
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -948,6 +972,8 @@ def main() -> None:
     ref_s = sum(sum(svc.stats[f"{name}_ref"].latencies_us)
                 for name in queries) / 1e6
     e2e_sgts_s = len(tuples) / wall   # phase 13 prints it beside its own
+    p4 = phase4_summary(svc, group, report, rec4, tuples, rounds, wall, dense_s,
+                        p50, p99)   # phase 14 holds its mesh legs against it
     print(f"[e2e] {len(tuples)} sgts in {wall:.3f} s = "
           f"{e2e_sgts_s:.3f} sgts/s; dispatch p50 {p50 / 1e3:.3f} ms, "
           f"p99 {p99 / 1e3:.3f} ms", flush=True)
@@ -1017,6 +1043,10 @@ def main() -> None:
                              device=None, n_slots=n_slots, n_vertices=n_slots,
                              unsupervised_sgts_s=e2e_sgts_s)
 
+    # -- 14. the mesh executor: lanes and vertices sharded, on the card(s) -----
+    mesh14 = mesh_phase(torch, queries, smi_line, p4, bk, device=None,
+                        n_slots=n_slots)
+
     e5, b6p = b5_rows["frontier"], b6_rows["path"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
 
@@ -1043,7 +1073,10 @@ def main() -> None:
          # phase 13: its clean and chaos runs, and the breaker leg's dense
          # intervals
          "supervised": {"launches": sup13["b1_launches"],
-                        "breaker_launches": sup13["breaker_launches"]["b1"]}},
+                        "breaker_launches": sup13["breaker_launches"]["b1"]},
+         # phase 14: the mesh legs (lanes, vertices, sparse layouts)
+         "mesh": {"launches": {k: mesh14[k]["b1"]
+                               for k in ("lanes", "vertices", "sparse")}}},
         row("B2 maxmin_matmul", "maxmin", "src/repro/kernels/maxmin/maxmin.py:67",
             legacy["b2_launches"], lvl_rows["B2"]["max_abs_err"], lvl_rows["B2"]),
         # B3's numbers are on the main path's own operands (phase 10's last
@@ -1052,7 +1085,9 @@ def main() -> None:
                "src/repro/kernels/bucket/bucket.py:93", bk["launches"][0],
                lvl_rows["B3 uniform"]["max_abs_err"], bk["path"]),
          "path_operands": {k: bk["path"][k] for k in bk["path"] if k not in keys},
-         "uniform": lvl_rows["B3 uniform"], "worst": lvl_rows["B3 worst"]},
+         "uniform": lvl_rows["B3 uniform"], "worst": lvl_rows["B3 worst"],
+         # phase 14: the mesh's bucket leg
+         "mesh": {"launches": {"bucket": mesh14["bucket"]["b3"]}}},
         row("B4 bucket_maxmin", "bucket", "src/repro/kernels/bucket/bucket.py:24",
             legacy["b4_launches"], lvl_rows["B4"]["max_abs_err"], lvl_rows["B4"]),
         # B5's numbers are its whole entry's at the frontier's shape on
@@ -1068,7 +1103,9 @@ def main() -> None:
                  "max_abs_err": lvl_rows["B5-int32"]["max_abs_err"],
                  **lvl_rows["B5-int32"]},
          # phase 13's breaker leg, its sparse intervals
-         "supervised": {"breaker_launches": sup13["breaker_launches"]["b5"]}},
+         "supervised": {"breaker_launches": sup13["breaker_launches"]["b5"]},
+         # phase 14: not on the mesh path (it densifies the ELL adjacency)
+         "mesh": {"launches": sum(v["b5"] + v["b5g"] for v in mesh14.values())}},
         {**row("B6 rowsparse_gather", "rowsparse",
                "src/repro/kernels/rowsparse/rowsparse.py:40", rs["b6_launches"],
                rs_err, b6p),
@@ -1077,7 +1114,9 @@ def main() -> None:
          "per_call": {k: b6p[k] for k in b6p if k not in keys},
          "synthetic": b6_rows["synthetic"],
          # phase 13's breaker leg, its sparse intervals
-         "supervised": {"breaker_launches": sup13["breaker_launches"]["b6"]}},
+         "supervised": {"breaker_launches": sup13["breaker_launches"]["b6"]},
+         # phase 14: not on the mesh path (it densifies the row-sparse dist)
+         "mesh": {"launches": sum(v["b6"] for v in mesh14.values())}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
@@ -1534,6 +1573,7 @@ def bucket_phase(torch, queries, twin, n_slots: int, tag: str, device=None,
                      backend=BucketBackend(n_levels=BUCKET_LEVELS))
     bg = svc.queries["Q1"]
     ex = bg.executor
+    rec = record(svc)   # phase 14 holds its bucket leg against this run
     dev = ex.arrays.now.device
     timed_part, tail = twin["timed"], twin["tail"]
     tuples = timed_part + tail
@@ -1637,7 +1677,8 @@ def bucket_phase(torch, queries, twin, n_slots: int, tag: str, device=None,
           f"level step ({float(step):.3f} s) below its threshold; {n_grid} "
           f"finite bucket entries == the float twin's grid-mapped dist",
           flush=True)
-    out = {"J": J, "launches": launches, "rounds": rounds}
+    out = {"J": J, "launches": launches, "rounds": rounds,
+           "logs": dense_logs(bg), "inv": rec["inv"]}
     path_ops = None
     if on_card and not ell:
         # B3's operands in the run's last round: the final dist gathered per
@@ -2380,6 +2421,252 @@ def breaker_leg(torch, queries, tag: str, probe, device, n_slots: int,
     print(f"{tag} breaker leg: final results == the clean run's for all "
           f"{len(finals['clean'])} queries", flush=True)
     return {"breaker_launches": counts["breaker"]}
+
+
+def record(svc):
+    """Instrument a service's dense group for phase 14's comparisons: per
+    event its deletion invalidations (event time, lane name, pairs), and per
+    RSPQ fallback the stream time of the switch and the lane's per-event
+    log until then (the group clears it). Changes nothing the service
+    computes."""
+    svc._ensure_group()
+    group = svc._group
+    rec = {"inv": [], "fallback_at": {}, "fallback_log": {}}
+    delete_batch, maybe_fallback = group.delete_batch, svc._maybe_fallback
+
+    def delete_recorded(edges):
+        out = delete_batch(edges)
+        t = max(e[3] for e in edges)
+        rec["inv"].extend((t, spec.name, frozenset(out[qi]))
+                          for qi, spec in group.live_items() if out[qi])
+        return out
+
+    def fallback_recorded(fallbacks, resolve_cb):
+        before = set(fallbacks)
+        logs = {spec.name: list(group.per_query_log[qi])
+                for qi, spec in group.live_items()}
+        maybe_fallback(fallbacks, resolve_cb)
+        for name in set(fallbacks) - before:
+            rec["fallback_at"][name] = group.host_now
+            rec["fallback_log"][name] = logs[name]
+
+    group.delete_batch = delete_recorded
+    svc._maybe_fallback = fallback_recorded
+    return rec
+
+
+def dense_logs(group):
+    """Each live dense lane's per-event result stream, by lane name."""
+    return {spec.name: by_event(group.per_query_log[qi])
+            for qi, spec in group.live_items()}
+
+
+def phase4_summary(svc, group, report, rec, tuples, rounds: int, wall: float,
+                   dense_s: float, p50: float, p99: float):
+    """What phase 14 holds its mesh legs against: phase 4's stream, its
+    per-event result logs and invalidations, its results and fallbacks,
+    its closure rounds and its rates."""
+    rec = {"inv": list(rec["inv"]), "fallback_at": dict(rec["fallback_at"]),
+           "fallback_log": dict(rec["fallback_log"])}   # later ingests go on
+    return {"tuples": list(tuples), "logs": dense_logs(group), "rec": rec,
+            "results": {name: set(svc.results(name)) for name in svc.stats},
+            "invalidated": report.invalidated,
+            "fallbacks": dict(report.fallbacks), "rounds": rounds,
+            "sgts_s": len(tuples) / wall, "dense_sgts_s": len(tuples) / dense_s,
+            "p50": p50, "p99": p99}
+
+
+def upto(t_end: float, logs=None, inv=None):
+    """Per-event logs (or the invalidation log) cut at event time t_end."""
+    if inv is not None:
+        return [e for e in inv if e[0] <= t_end]
+    return {name: {t: p for t, p in log.items() if t <= t_end}
+            for name, log in logs.items()}
+
+
+def mesh_phase(torch, queries, smi: str, p4, bucket_run, device=None,
+               n_slots: int = 2048, prefix_inserts: int = MESH_PREFIX_INSERTS):
+    """Phase 14: the mesh executor through the service, over phase 4's
+    configuration (the 11 queries and the simple lanes of Q2 and Q3, no
+    reference engines) on ``MESH_DEVICES`` shards (one card's, or one per
+    card on a machine with four), in four
+    legs held against phase 4's run (``p4``, from ``phase4_summary``),
+    phase 10's dense bucket run (``bucket_run``) and a local run: (a) lanes
+    (4x1) on phase 4's whole stream; (b) vertices (2x2) and (c) the sparse
+    layouts (2x2: frontier "auto", ELL, row-sparse; also against a local
+    run of that configuration) and (d) the bucket backend (4x1), each on
+    the first ``prefix_inserts`` inserts. Per leg: results, per-event
+    result logs and invalidations equal, the fallback at the same event,
+    the skip identity, and B1 (B3) launched once per shard-round per model
+    peer, B5 and B6 never. ``device`` and ``n_slots`` let it rehearse on
+    the CPU (where no kernel launches). Returns each leg's launches by
+    kernel ("b1", "b3", "b5", "b5g", "b6")."""
+    from repro_torch.core.contraction import BucketBackend
+    from repro_torch.distributed.executor import MeshExecutor
+    from repro_torch.kernels.bucket import bucket as b3
+    from repro_torch.kernels.ell import ell as b5
+    from repro_torch.kernels.maxmin import maxmin as b1
+    from repro_torch.kernels.rowsparse import rowsparse as b6
+    from repro_torch.streaming.service import PersistentQueryService
+    from repro_torch.streaming.stream import Stream
+
+    on_card = device is None
+    kernels = {"b1": b1.maxmin_matmul_fused, "b3": b3.bucket_maxmin_fused,
+               "b5": b5.ell_contract_rows, "b5g": b5.ell_gather_contract,
+               "b6": b6.rowsparse_gather}
+    tuples = p4["tuples"]
+    cut = [i for i, s in enumerate(tuples) if s.op == "+"][prefix_inserts]
+    prefix = tuples[:cut]
+    t_end = prefix[-1].ts
+    window, slide = 20.0, 2.0
+
+    def run(tag, executor, part, backend=None, simple=True, **layout):
+        """One service over ``part`` with its counts set to 0 just before
+        the ingest and read just after. On the lane grid (4 lane shards) a
+        shard-round must be skipped; the 2x2 grid's two lane shards each
+        hold a lane of the deepest queries (Q4 and Q9 close over every
+        label), so there they may converge together."""
+        svc = PersistentQueryService(window=window, slide=slide, executor=executor,
+                                     device=device, **layout)
+        kw = {} if backend is None else {"backend": backend}
+        for name, expr in queries.items():
+            svc.register(name, expr, engine="dense", n_slots=n_slots, batch_size=1,
+                         **kw)
+        if simple:
+            for name in ("Q2", "Q3"):
+                svc.register(f"{name}_simple", queries[name], engine="dense",
+                             path_semantics="simple", n_slots=n_slots,
+                             batch_size=1, **kw)
+        rec = record(svc)
+        group = svc._group
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        report = svc.ingest(Stream(part), record_latency=True)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in kernels.items()}
+        lat = sorted(svc.stats["Q1"].latencies_us)
+        out = {"svc": svc, "group": group, "rec": rec, "report": report,
+               "launches": launches, "logs": dense_logs(group), "wall": wall,
+               "sgts_s": len(part) / wall, "p50": lat[len(lat) // 2],
+               "p99": lat[min(int(0.99 * len(lat)), len(lat) - 1)],
+               "peak": torch.cuda.max_memory_allocated() if on_card else 0}
+        ex = group.executor
+        if isinstance(ex, MeshExecutor):
+            n_sh, n_m = ex.n_shards, ex.n_model
+            sr, sync = ex.shard_rounds_total, ex.sync_rounds_total
+            skipped = ex.skipped_shard_rounds_total
+            if sr + skipped != n_sh * sync:
+                fail(f"{tag}: shard-rounds {sr} + skipped {skipped} != "
+                     f"{n_sh} x sync rounds {sync}")
+            if n_sh == MESH_DEVICES and skipped <= 0:
+                fail(f"{tag}: no shard-round was skipped")
+            kern = "b3" if backend is not None else "b1"
+            want = {k: 0 for k in kernels}
+            want[kern] = n_m * sr
+            if on_card and launches != want:
+                fail(f"{tag}: launches {launches} != {want} ({n_m} model peers x "
+                     f"{sr} shard-rounds)")
+            out.update(shard_rounds=sr, sync_rounds=sync, skipped=skipped)
+            print(f"[{tag}] {ex.n_shards}x{ex.n_model} grid over "
+                  f"{sorted({str(d) for row in ex.grid for d in row})}: "
+                  f"{len(part)} sgts in {wall:.3f} s = {out['sgts_s']:.3f} sgts/s, "
+                  f"dispatch p50 {out['p50'] / 1e3:.3f} ms, p99 "
+                  f"{out['p99'] / 1e3:.3f} ms (phase 4, local, same run: "
+                  f"{p4['sgts_s']:.3f} sgts/s with its reference engines, "
+                  f"{p4['dense_sgts_s']:.3f} for its dense group alone, p50 "
+                  f"{p4['p50'] / 1e3:.3f} ms, p99 {p4['p99'] / 1e3:.3f} ms); "
+                  f"shard-rounds run {sr} of {n_sh} x {sync} sync rounds, "
+                  f"{skipped} skipped ({skipped / max(n_sh * sync, 1):.3f}); "
+                  f"{ex.steps} dispatches, host syncs "
+                  f"{group.host_syncs / max(ex.steps, 1):.3f} a dispatch; launches "
+                  f"{launches}; peak device memory {out['peak']} bytes "
+                  f"({out['peak'] / 2**30:.3f} GiB); {smi}", flush=True)
+        return out
+
+    def same(tag, got, want_logs, want_inv, what):
+        bad = [n for n in want_logs if got["logs"].get(n) != want_logs[n]]
+        if bad:
+            fail(f"{tag}: per-event result logs differ from {what} for {bad}")
+        if got["rec"]["inv"] != want_inv:
+            fail(f"{tag}: per-event deletion invalidations differ from {what}")
+
+    # the shards go round the visible cards: all on one card, or one a card
+    grid4 = ([f"cuda:{i % torch.cuda.device_count()}" for i in range(MESH_DEVICES)]
+             if on_card else [device] * MESH_DEVICES)
+    legs = {}
+
+    # (a) lanes: phase 4's whole stream
+    a = run("mesh-lanes", MeshExecutor(grid4), tuples)
+    same("mesh-lanes", a, p4["logs"], p4["rec"]["inv"], "phase 4's")
+    bad = [n for n in a["svc"].stats if set(a["svc"].results(n)) != p4["results"][n]]
+    if bad:
+        fail(f"mesh-lanes: results differ from phase 4's for {bad}")
+    if any(a["report"].invalidated[n] != p4["invalidated"][n] for n in a["svc"].stats):
+        fail("mesh-lanes: deletion invalidations differ from phase 4's")
+    if a["report"].fallbacks != p4["fallbacks"]:
+        fail("mesh-lanes: fallbacks differ from phase 4's")
+    for key in ("fallback_at", "fallback_log"):
+        if a["rec"][key] != p4["rec"][key]:
+            fail(f"mesh-lanes: the RSPQ fallback ({key}) differs from phase 4's")
+    if a["sync_rounds"] != p4["rounds"]:
+        fail(f"mesh-lanes: sync rounds {a['sync_rounds']} != phase 4's closure "
+             f"rounds {p4['rounds']}")
+    print(f"[mesh-lanes] results, per-event result logs and invalidations == "
+          f"phase 4's for all {len(a['svc'].stats)} queries; "
+          f"{sorted(p4['fallbacks'])} fell back at the same stream times "
+          f"{a['rec']['fallback_at']}; sync rounds == phase 4's "
+          f"{p4['rounds']} closure rounds", flush=True)
+    legs["lanes"] = a["launches"]
+    del a
+
+    p4_prefix = upto(t_end, logs=p4["logs"])
+    p4_prefix_inv = upto(t_end, inv=p4["rec"]["inv"])
+
+    # (b) vertices: a 2x2 grid on the prefix
+    b = run("mesh-vertices", MeshExecutor(grid4, model_axis=2), prefix)
+    same("mesh-vertices", b, p4_prefix, p4_prefix_inv, "phase 4's prefix")
+    print(f"[mesh-vertices] per-event result logs and invalidations == phase 4's "
+          f"over its first {len(prefix)} sgts", flush=True)
+    legs["vertices"] = b["launches"]
+    del b
+
+    # (c) the sparse layouts, densified per dispatch: a 2x2 grid and a local
+    # run of the same configuration, on the prefix
+    sparse = dict(**ELL_LAYOUT, **RS_DIST)
+    c = run("mesh-sparse", MeshExecutor(grid4, model_axis=2, **sparse), prefix)
+    local = run("mesh-sparse-local", "local", prefix, **sparse)
+    same("mesh-sparse", c, local["logs"], local["rec"]["inv"],
+         "the local run of the same configuration")
+    same("mesh-sparse", c, p4_prefix, p4_prefix_inv, "phase 4's prefix")
+    fst = c["group"].executor.frontier_stats
+    print(f"[mesh-sparse] per-event result logs and invalidations == the local "
+          f"sparse run's ({local['sgts_s']:.3f} sgts/s, p50 "
+          f"{local['p50'] / 1e3:.3f} ms, launches {local['launches']}) and phase "
+          f"4's prefix; frontier {fst['dispatches']} dispatches, "
+          f"{fst['fallbacks']} shard fallbacks, final cap {fst['cap']}; "
+          f"dist {c['group'].executor.dist_stats['drains']} drains, lost "
+          f"{c['group'].executor.dist_stats['lost']}", flush=True)
+    legs["sparse"] = c["launches"]
+    del c, local
+
+    # (d) the bucket backend on the lane grid, against phase 10's dense run
+    d = run("mesh-bucket", MeshExecutor(grid4, backend=BucketBackend(BUCKET_LEVELS)),
+            prefix, backend=BucketBackend(BUCKET_LEVELS), simple=False)
+    same("mesh-bucket", d, upto(t_end, logs=bucket_run["logs"]),
+         upto(t_end, inv=bucket_run["inv"]), "phase 10's dense bucket run")
+    print(f"[mesh-bucket] per-event result logs and invalidations == phase 10's "
+          f"dense bucket run over its first {len(prefix)} sgts", flush=True)
+    legs["bucket"] = d["launches"]
+    del d
+    if on_card:
+        torch.cuda.empty_cache()
+    return legs
 
 
 if __name__ == "__main__":

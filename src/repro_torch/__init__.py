@@ -2,9 +2,10 @@
 reference it is held against).
 
 Layers, as in the reference: service (``streaming.service``) -> engine
-(``core.engine``) -> executor (``core.executor``; the ELL adjacency in
+(``core.engine``) -> executor (``core.executor``, or the mesh executor
+over a grid of devices in ``distributed.executor``; the ELL adjacency in
 ``core.sparse_adj``, the row-sparse dist in ``core.sparse_dist``) ->
-closure rounds, dense and frontier-restricted, and the legacy
+closure rounds, dense, frontier-restricted and sharded, and the legacy
 single-query round (``core.semiring``) -> contraction backend
 (``core.contraction``: float kernels or the level-quantized bucket mode)
 -> kernels B1/B2 (``kernels.maxmin``, CUDA C++ in ``csrc/maxmin.cu``),

@@ -4,7 +4,8 @@ restores what the other wrote:
 
     <dir>/step_000123/
         manifest.json        tree structure + array metadata + status
-        shard_00000.npz      the arrays (one host until the mesh executor)
+        shard_00000.npz      the arrays (one host: the mesh executor is
+                             single-process and saves logical tensors)
     <dir>/LATEST             text file: last COMMITTED step directory
 
 * atomicity: the shard is written first, the manifest is written and

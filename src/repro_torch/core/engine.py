@@ -1,7 +1,7 @@
 """Dense streaming RPQ engine, multi-query batched — the counterpart of
-``repro.core.engine`` for the local executor: the dense or the padded-ELL
-adjacency, the dense or the row-sparse dist, and the frontier-restricted
-ingest and deletion.
+``repro.core.engine`` for the local and the mesh executor: the dense or
+the padded-ELL adjacency, the dense or the row-sparse dist, and the
+frontier-restricted ingest and deletion.
 
 Q persistent queries share ONE adjacency over the union label alphabet and
 step as one dispatch per micro-batch; the query set is live (queries
@@ -336,7 +336,7 @@ class BatchedDenseRPQEngine:
             self.max_window = float(windows[live].max())
         self.tables = QueryTables(
             self.btt, self.finals_mask, self.windows, self.live_mask,
-            int(live.sum()), float(self.max_window),
+            int(live.sum()), float(self.max_window), live,
         )
 
     def _repad_arrays(self) -> None:
@@ -356,10 +356,9 @@ class BatchedDenseRPQEngine:
             return flags
         self.host_reads += 1
         sel = torch.as_tensor(lanes).to(self.device)
-        a = self.executor.arrays
-        low = a.now - self.windows.index_select(0, sel)
+        low = self.executor.now - self.windows.index_select(0, sel)
         flags[lanes] = device_get(_conflict_possible(
-            self.executor.dense_dist().index_select(0, sel),
+            self.executor.lane_dist(lanes),
             self.not_contained.index_select(0, sel), low))
         return flags
 
@@ -682,10 +681,10 @@ class BatchedDenseRPQEngine:
         layout (the live tensors where the layout is dense; checkpoints
         copy them)."""
         self._drain_pending()
-        a = self.executor.arrays
         return {"adj": self.executor.dense_adj(),
                 "dist": self.executor.dense_dist(),
-                "emitted": a.emitted, "now": a.now}
+                "emitted": self.executor.dense_emitted(),
+                "now": self.executor.now}
 
     def state_arrays(self) -> Dict[str, np.ndarray]:
         """The device state as a dict of host numpy arrays (the layout the
@@ -699,7 +698,7 @@ class BatchedDenseRPQEngine:
         self._drain_pending()
         shapes = {"adj": self.executor.adj_shape,
                   "dist": self.executor.dist_shape,
-                  "emitted": tuple(self.executor.arrays.emitted.shape)}
+                  "emitted": self.executor.dist_shape[:3]}
         for key, shape in shapes.items():
             got = tuple(np.shape(state[key]))
             if got != shape:
@@ -747,7 +746,7 @@ class BatchedDenseRPQEngine:
         for li_ck, lab in enumerate(labels):
             adj[self._label_index[lab], :ck_n, :ck_n] = adj_ck[li_ck]
         dist = np.full(self.executor.dist_shape, NEG_INF, np.float32)
-        emitted = np.zeros(tuple(self.executor.arrays.emitted.shape), bool)
+        emitted = np.zeros(self.executor.dist_shape[:3], bool)
         # states beyond a lane's own dfa.k are -inf padding (no transition
         # scatters into them), so the K prefix carries everything real in
         # either direction

@@ -131,7 +131,8 @@ def init_batched_arrays(n_slots: int, n_labels: int, n_queries: int, k: int,
 class QueryTables(NamedTuple):
     """Per-lane metadata the engine rebuilds at lifecycle events and the
     executor consumes at every dispatch (tensors on the engine's device;
-    ``n_live`` and ``max_window`` are host values)."""
+    ``n_live``, ``max_window`` and ``live_host``, the host mirror of
+    ``live_mask`` the mesh executor's shard skip reads, are host values)."""
 
     btt: BatchedTransitionTable
     finals_mask: torch.Tensor  # (Q, K) bool
@@ -139,6 +140,7 @@ class QueryTables(NamedTuple):
     live_mask: torch.Tensor    # (Q,) bool
     n_live: int
     max_window: float = 0.0
+    live_host: Optional[np.ndarray] = None  # (Q,) bool
 
 
 class HostBatch(NamedTuple):
@@ -530,6 +532,21 @@ class Executor:
             return rsd_to_dense(d)
         return d
 
+    def dense_emitted(self) -> torch.Tensor:
+        """The emitted pairs as one ``(Q, N, N)`` tensor."""
+        return self._arrays.emitted
+
+    def lane_dist(self, lanes: Sequence[int]) -> torch.Tensor:
+        """The dense dist of the given lanes, ``(len(lanes), N, N, K)``
+        (the engine's conflict probe)."""
+        sel = torch.as_tensor(np.asarray(lanes, np.int64)).to(self.device)
+        return self.dense_dist().index_select(0, sel)
+
+    @property
+    def now(self) -> torch.Tensor:
+        """The stream clock, a () float32 tensor on the device."""
+        return self._arrays.now
+
     @property
     def adj_shape(self) -> Tuple[int, int, int]:
         """Logical dense ``(L, N, N)`` adjacency shape regardless of layout."""
@@ -554,7 +571,6 @@ class Executor:
         reference does: an ELL adjacency re-packs at the new shape (the
         ring drains as a side effect), a row-sparse dist re-packs with the
         table empty."""
-        a = self._arrays
         l_old, n_old, _ = self.adj_shape
         q_old, _, _, k_old = self.dist_shape
         n_new = max(n_slots or 0, n_old)
@@ -566,8 +582,8 @@ class Executor:
         grown = init_batched_arrays(n_new, l_new, q_new, k_new, self.device)
         grown.adj[:l_old, :n_old, :n_old] = self.dense_adj()
         grown.dist[:q_old, :n_old, :n_old, :k_old] = self.dense_dist()
-        grown.emitted[:q_old, :n_old, :n_old] = a.emitted
-        grown = grown._replace(now=a.now)
+        grown.emitted[:q_old, :n_old, :n_old] = self.dense_emitted()
+        grown = grown._replace(now=self.now)
         if self.adj_layout == "ell":
             grown = grown._replace(adj=self._pack_device(grown.adj))
         if self.dist_layout == "row_sparse":
@@ -830,12 +846,7 @@ class Executor:
                  syncs: int, fstats=None, is_delete: bool = False) -> None:
         self.host_syncs += syncs
         n = self.dist_shape[1] if self._arrays is not None else 0
-        if self.adj_layout == "ell":
-            # a frontier round contracts once, a dense round once per J chunk
-            dense = fstats is None or fstats.fell_back
-            per_round = (ell_round_launches(tables.btt.qidx.shape[0], n)
-                         if dense else 1)
-            self._ell_contractions_total += rounds * per_round
+        self._count_ell(rounds, tables, fstats, n)
         self._pending_counts.append(
             (rounds, qrounds, tables.n_live, fstats, n, is_delete))
         # "auto" flushes more eagerly: its x2 capacity growth reads the
@@ -843,6 +854,15 @@ class Executor:
         limit = 64 if self.frontier == "auto" else 256
         if len(self._pending_counts) >= limit:
             self._flush_counts()
+
+    def _count_ell(self, rounds: int, tables: QueryTables, fstats,
+                   n: int) -> None:
+        if self.adj_layout == "ell":
+            # a frontier round contracts once, a dense round once per J chunk
+            dense = fstats is None or fstats.fell_back
+            per_round = (ell_round_launches(tables.btt.qidx.shape[0], n)
+                         if dense else 1)
+            self._ell_contractions_total += rounds * per_round
 
     def _flush_counts(self) -> None:
         for rounds, qrounds, n_live, fstats, n, is_delete in \
@@ -946,5 +966,5 @@ class Executor:
 
 
 class LocalExecutor(Executor):
-    """Single-device executor (the only one ported; the mesh executor is
-    ROADMAP A11)."""
+    """Single-device executor (the mesh executor over a grid of devices is
+    :class:`repro_torch.distributed.executor.MeshExecutor`)."""

@@ -1,10 +1,12 @@
 """(max, min) bottleneck-semiring relaxation over the product graph —
-``repro.core.semiring`` lines 55-1012: the legacy single-query round
+``repro.core.semiring`` lines 55-1480: the legacy single-query round
 (:class:`TransitionTable`, :func:`relax_round`, :func:`closure`,
 :func:`valid_pairs`), and for a batch of queries the batched round and
 closure over a dense or an ELL adjacency, the frontier-restricted closure
-and deletion, and both over the row-sparse dist
-(:mod:`repro_torch.core.sparse_dist`).
+and deletion, both over the row-sparse dist
+(:mod:`repro_torch.core.sparse_dist`), and the sharded rounds of the mesh
+executor (:func:`shard_transitions`, :func:`shard_closure`,
+:func:`shard_frontier_closure`, :func:`shard_frontier_delete`).
 
 ``dist[q, x, v, s]`` is the best (max over paths) bottleneck (min over
 edges) timestamp of any path x -> v whose label drives query q's DFA from
@@ -28,7 +30,7 @@ host decision here, on one read of the per-lane frontier counts.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -270,18 +272,16 @@ def _round_update(dist: torch.Tensor, adj: torch.Tensor,
         scat = _segment_buffer(q * k, n, dist)
         _ell_round_chunks(scat, dist, adj, btt, backend, active, seg,
                           bool(s.numel()))
-    else:
-        contrib = backend.contract_batched(dist, adj, btt, active)  # (J, N, N)
-        if s.numel():
-            sub = contrib.index_select(0, s)
-            base = adj.index_select(0, btt.lab.index_select(0, s))
-            sub = torch.where(active.index_select(0, s)[:, None, None],
-                              torch.maximum(sub, base), sub)
-            contrib.index_copy_(0, s, sub)
-            del sub, base
-        scat = _segment_buffer(q * k, n, dist)
-        scat.index_reduce_(0, seg, contrib, "amax", include_self=True)
-    return scat.view(q, k, n, n).permute(0, 2, 3, 1)
+        return scat.view(q, k, n, n).permute(0, 2, 3, 1)
+    contrib = backend.contract_batched(dist, adj, btt, active)  # (J, N, N)
+    if s.numel():
+        sub = contrib.index_select(0, s)
+        base = adj.index_select(0, btt.lab.index_select(0, s))
+        sub = torch.where(active.index_select(0, s)[:, None, None],
+                          torch.maximum(sub, base), sub)
+        contrib.index_copy_(0, s, sub)
+        del sub, base
+    return _segment_max(contrib, seg, q, k)
 
 
 def _segment_buffer(segments: int, n: int, dist: torch.Tensor) -> torch.Tensor:
@@ -289,6 +289,17 @@ def _segment_buffer(segments: int, n: int, dist: torch.Tensor) -> torch.Tensor:
     minimum."""
     return torch.full((segments, n, n), _dtype_min(dist.dtype),
                       dtype=dist.dtype, device=dist.device)
+
+
+def _segment_max(contrib: torch.Tensor, seg: torch.Tensor, q: int,
+                 k: int) -> torch.Tensor:
+    """Segment max of (J, M, C) contributions into (q * k) segments, as a
+    (Q, M, C, K) view; empty segments hold the dtype minimum."""
+    _j, m, c = contrib.shape
+    scat = torch.full((q * k, m, c), _dtype_min(contrib.dtype),
+                      dtype=contrib.dtype, device=contrib.device)
+    scat.index_reduce_(0, seg, contrib, "amax", include_self=True)
+    return scat.view(q, k, m, c).permute(0, 2, 3, 1)
 
 
 def ell_round_chunk(j: int, n: int, itemsize: int = 4) -> int:
@@ -612,11 +623,7 @@ def _frontier_slab_round(
                           torch.maximum(contrib, a_base), contrib)
     act = btt.active[:, None] & rowmask[btt.qidx]            # (J, F)
     contrib = contrib.masked_fill_(~act[:, :, None], backend.zero)
-    seg = btt.qidx * k + btt.dst
-    scat = torch.full((q * k, f, n), _dtype_min(slab.dtype), dtype=slab.dtype,
-                      device=slab.device)
-    scat.index_reduce_(0, seg, contrib, "amax", include_self=True)
-    upd = scat.view(q, k, f, n).permute(0, 2, 3, 1)          # (Q, F, N, K)
+    upd = _segment_max(contrib, btt.qidx * k + btt.dst, q, k)  # (Q, F, N, K)
     new_slab = torch.maximum(slab, upd)
     changed = (new_slab > slab).flatten(2).any(dim=2) & rowmask
     return new_slab, changed
@@ -843,3 +850,507 @@ def frontier_delete(
         dist, adj, btt, backend, src, smask, f_cap, query_mask, max_rounds,
         now, w_max, delete=True)
     return dist, rounds, qrounds, stats
+
+
+# ---------------------------------------------------------------------------
+# Sharded rounds (reference: semiring.py:1000-1480)
+#
+# The mesh executor (repro_torch.distributed.executor) block-partitions the
+# lanes over the data axis of its device grid and, optionally, the third
+# axis of dist (v, the u of the next round's contraction) over the model
+# axis. A lane shard relaxes only its own lanes' transition rows (a
+# per-shard BatchedTransitionTable with shard-local lane indices, from
+# shard_tables) to ITS OWN fixpoint, and skips the dispatch when none of
+# its lanes is live (or, on the frontier path, dirty). The model peers of
+# a lane shard each contract their own u block; their (J, M, N) partials
+# fold with max onto the first peer and each peer keeps its v columns:
+# the reference's pmax, exact because max never reassociates. The changed
+# flags fold the same way, so the peers of a shard agree on every round.
+#
+# Differences from the JAX version, none visible in the results: the
+# per-shard lax.cond skip is a host decision (the executor's host mirror
+# of the query mask, or the one read of every shard's frontier counts),
+# the while_loop is a host round loop, and the loops of all active shards
+# advance together with one blocking read a round (run_lockstep). Blocks
+# are updated in place, as the local executor updates its dist.
+# ---------------------------------------------------------------------------
+
+
+_ROW_KEYS = ("qidx", "src", "lab", "dst", "start", "active")
+
+
+def _shard_rows_np(btt: BatchedTransitionTable, q_cap: int, n_shards: int,
+                   j_bucket: int = 8):
+    """The rows of :func:`shard_transitions` as a dict of (n_shards, J_s)
+    numpy arrays (one host read of the table)."""
+    if q_cap % n_shards:
+        raise ValueError(f"q_cap {q_cap} not divisible by {n_shards} shards")
+    q_shard = q_cap // n_shards
+    cols = device_get(torch.stack([btt.qidx, btt.src, btt.lab, btt.dst,
+                                   btt.start_mask.long(), btt.active.long()]))
+    qidx, src, lab, dst, start, active = cols
+    owned = [[] for _ in range(n_shards)]
+    for j in np.nonzero(active)[0].tolist():
+        owned[int(qidx[j]) // q_shard].append(j)
+    j_max = max([len(r) for r in owned] + [1])
+    j_s = max(j_max + (-j_max) % j_bucket, j_bucket)
+    out = {key: np.zeros((n_shards, j_s), np.int32) for key in _ROW_KEYS[:4]}
+    out["start"] = np.zeros((n_shards, j_s), bool)
+    out["active"] = np.zeros((n_shards, j_s), bool)
+    for sh, ids in enumerate(owned):
+        ids = np.asarray(ids, np.int64)
+        r = len(ids)
+        out["qidx"][sh, :r] = qidx[ids] - sh * q_shard
+        out["src"][sh, :r] = src[ids]
+        out["lab"][sh, :r] = lab[ids]
+        out["dst"][sh, :r] = dst[ids]
+        out["start"][sh, :r] = start[ids] != 0
+        out["active"][sh, :r] = True
+    return out
+
+
+def shard_transitions(btt: BatchedTransitionTable, q_cap: int, n_shards: int,
+                      j_bucket: int = 8, device: DeviceLike = None
+                      ) -> Tuple[torch.Tensor, ...]:
+    """Regroup a flattened transition table by lane shard, as the
+    reference does: shard i owns lanes [i*q_cap/n_shards,
+    (i+1)*q_cap/n_shards). Returns six (n_shards, J_s) tensors on
+    ``device`` — qidx (SHARD-LOCAL lane index), src, lab, dst (int32),
+    start_mask, active (bool) — with J_s the bucketed largest row count
+    over shards (padding rows inert). ``q_cap`` must be a multiple of
+    ``n_shards``."""
+    dev = resolve_device(device)
+    rows = _shard_rows_np(btt, q_cap, n_shards, j_bucket)
+    return tuple(torch.as_tensor(rows[key]).to(dev) for key in _ROW_KEYS)
+
+
+def _tables_from_rows(rows, k: int, n_labels: int, q_shard: int,
+                      device: torch.device) -> List[BatchedTransitionTable]:
+    """Per-shard tables on ``device`` from :func:`_shard_rows_np`'s rows."""
+    def t(x, dtype=torch.int64):
+        return torch.as_tensor(np.asarray(x)).to(device, dtype)
+
+    return [BatchedTransitionTable(
+        qidx=t(rows["qidx"][sh]), src=t(rows["src"][sh]),
+        lab=t(rows["lab"][sh]), dst=t(rows["dst"][sh]),
+        start_mask=t(rows["start"][sh], torch.bool),
+        active=t(rows["active"][sh], torch.bool),
+        start_idx=t(np.nonzero(rows["start"][sh])[0]),
+        n_queries=q_shard, k=k, n_labels=n_labels)
+        for sh in range(rows["qidx"].shape[0])]
+
+
+def shard_tables(btt: BatchedTransitionTable, q_cap: int, n_shards: int,
+                 j_bucket: int = 8, device: DeviceLike = None
+                 ) -> List[BatchedTransitionTable]:
+    """:func:`shard_transitions` as one :class:`BatchedTransitionTable` per
+    shard (shard-local lanes, ``n_queries = q_cap / n_shards``), the form
+    the shard rounds take."""
+    rows = _shard_rows_np(btt, q_cap, n_shards, j_bucket)
+    return _tables_from_rows(rows, btt.k, btt.n_labels, q_cap // n_shards,
+                             resolve_device(device))
+
+
+def _peer_cols(m: int, n_m: int) -> slice:
+    return slice(m * n_m, (m + 1) * n_m)
+
+
+def _fold_peers(parts: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The reference's pmax: the peers' (J, M, N) partials folded with max
+    on the first peer's device, then each peer's v columns, on its own."""
+    n_m = parts[0].shape[-1] // len(parts)
+    full = parts[0]
+    for p in parts[1:]:
+        full = torch.maximum(full, p.to(full.device, non_blocking=True))
+    return [full[..., _peer_cols(m, n_m)].to(p.device, non_blocking=True)
+            for m, p in enumerate(parts)]
+
+
+def _or_peers(flags: List[torch.Tensor]) -> torch.Tensor:
+    """The peers' flags folded with OR onto the first peer's device."""
+    out = flags[0]
+    for f in flags[1:]:
+        out = out | f.to(out.device, non_blocking=True)
+    return out
+
+
+def _shard_round(blocks: List[torch.Tensor], adjs: List[torch.Tensor],
+                 tables: List[BatchedTransitionTable], backend: Backend,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """One masked round of a lane shard (reference :1061-1119), in place
+    on its peers' (Q_l, N, N_m, K) blocks in the backend's representation;
+    ``adjs`` holds each peer's whole (L, N, N) adjacency. Returns the
+    (Q_l,) lanes that changed, on the first peer's device. One peer is
+    the local round on the block."""
+    if len(blocks) == 1:
+        return _relax_in_place(blocks[0], adjs[0], tables[0], backend, mask)
+    q_l, n, n_m, k = blocks[0].shape
+    parts = []
+    for m, (blk, adj, t) in enumerate(zip(blocks, adjs, tables)):
+        d_s = blk[t.qidx, :, :, t.src]                    # (J, N, N_m) [x, u_m]
+        a_u = adj[:, _peer_cols(m, n_m)][t.lab]           # (J, N_m, N) [u_m, v]
+        parts.append(backend.contract_rows(d_s, a_u))     # (J, N, N) partial
+        del d_s, a_u
+    changed = []
+    for m, (blk, adj, t, contrib) in enumerate(
+            zip(blocks, adjs, tables, _fold_peers(parts))):
+        active = t.active & mask.to(blk.device)[t.qidx]
+        contrib.masked_fill_(~active[:, None, None], backend.zero)
+        s = t.start_idx
+        if s.numel():
+            # base term on the active start rows, this peer's v columns
+            sub = contrib.index_select(0, s)
+            base = adj[:, :, _peer_cols(m, n_m)][t.lab.index_select(0, s)]
+            sub = torch.where(active.index_select(0, s)[:, None, None],
+                              torch.maximum(sub, base), sub)
+            contrib.index_copy_(0, s, sub)
+            del sub, base
+        upd = _segment_max(contrib, t.qidx * k + t.dst, q_l, k)
+        changed.append((upd > blk).reshape(q_l, -1).any(dim=1))
+        torch.maximum(blk, upd, out=blk)
+    return mask & _or_peers(changed)
+
+
+def _shard_frontier_round(blocks: List[torch.Tensor], adjs: List[torch.Tensor],
+                          tables: List[BatchedTransitionTable], backend: Backend,
+                          rows: torch.Tensor, rowmask: torch.Tensor
+                          ) -> torch.Tensor:
+    """One frontier round of a lane shard (reference :1222-1262), in place
+    on its peers' blocks: each peer gathers its (Q_l, F, N_m, K) slab,
+    contracts its u block, and after the fold takes the base term at the
+    frontier rows of its v columns and max-scatters its slab back.
+    Returns the (Q_l, F) rows that changed (first peer's device). One
+    peer is :func:`frontier_relax_round` on the block."""
+    if len(blocks) == 1:
+        return frontier_relax_round(blocks[0], adjs[0], tables[0], backend,
+                                    rows, rowmask)[1]
+    q_l, n, n_m, k = blocks[0].shape
+    f = rows.shape[1]
+    parts, slabs, flats = [], [], []
+    for m, (blk, adj, t) in enumerate(zip(blocks, adjs, tables)):
+        flat = (torch.arange(q_l, device=blk.device)[:, None] * n
+                + rows.to(blk.device)).reshape(-1)
+        slab = blk.view(q_l * n, -1).index_select(0, flat).view(q_l, f, n_m, k)
+        slab_s = slab[t.qidx, :, :, t.src].contiguous()   # (J, F, N_m) [f, u_m]
+        a_u = adj[:, _peer_cols(m, n_m)][t.lab]           # (J, N_m, N)
+        parts.append(backend.contract_rows(slab_s, a_u))  # (J, F, N) partial
+        slabs.append(slab)
+        flats.append(flat)
+        del slab_s, a_u
+    changed = []
+    for m, (blk, adj, t, contrib) in enumerate(
+            zip(blocks, adjs, tables, _fold_peers(parts))):
+        rows_m, rm = rows.to(blk.device), rowmask.to(blk.device)
+        rows_j = rows_m[t.qidx]                            # (J, F)
+        a_base = adj[:, :, _peer_cols(m, n_m)][t.lab[:, None], rows_j]
+        base_rows = t.start_mask & t.active
+        contrib = torch.where(base_rows[:, None, None],
+                              torch.maximum(contrib, a_base), contrib)
+        act = t.active[:, None] & rm[t.qidx]               # (J, F)
+        contrib.masked_fill_(~act[:, :, None], backend.zero)
+        upd = _segment_max(contrib, t.qidx * k + t.dst, q_l, k)
+        new_slab = torch.maximum(slabs[m], upd)
+        changed.append((new_slab > slabs[m]).flatten(2).any(dim=2) & rm)
+        blk.view(q_l * n, -1).index_reduce_(
+            0, flats[m], new_slab.reshape(q_l * f, -1), "amax",
+            include_self=True)
+    return _or_peers(changed)
+
+
+def _shard_dirty_rows(blocks: List[torch.Tensor], src: torch.Tensor,
+                      smask: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(Q_l, N) dirty rows of a batch on one lane shard (reference
+    :1263-1313; the cone of a delete on the pre-delete blocks): rows
+    x = a batch source, and rows reaching one with a finite entry. Each
+    peer gathers the columns of the batch sources in its own u range (the
+    reference scans them; the mask is the same) and the peers' reach
+    folds with OR. Computed on raw float32 timestamps."""
+    dev = blocks[0].device
+    if len(blocks) == 1:
+        return frontier_seed_gathered(blocks[0], src.to(dev), smask.to(dev), mask)
+    n, n_m = blocks[0].shape[1], blocks[0].shape[2]
+    reach = []
+    for m, blk in enumerate(blocks):
+        local = src.to(blk.device) - m * n_m
+        ok = smask.to(blk.device) & (local >= 0) & (local < n_m)
+        cols = blk.index_select(2, torch.where(ok, local, 0))   # (Q_l, N, B, K)
+        reach.append(((cols > NEG_INF) & ok[None, None, :, None])
+                     .any(dim=3).any(dim=2))
+        del cols
+    dirty = _or_peers(reach) | _source_mask(src.to(dev), smask.to(dev), n)[None, :]
+    return dirty & mask[:, None]
+
+
+class Shard(NamedTuple):
+    """One lane shard of a dispatch: its model peers' dist blocks, whole
+    adjacencies and transition tables (one each per peer, on the peer's
+    device), and its (Q_l,) query mask on the first peer's device with its
+    host mirror (the skip decision reads the mirror, never the device)."""
+
+    blocks: List[torch.Tensor]
+    adjs: List[torch.Tensor]
+    tables: List[BatchedTransitionTable]
+    mask: torch.Tensor
+    mask_host: np.ndarray
+
+
+class _DenseLoop:
+    """A shard's convergence-masked loop (reference ``_shard_dense_loop``),
+    one round a step: round 1 relaxes the initial mask, each later round
+    the lanes the previous one changed."""
+
+    def __init__(self, ops, adjs, tables, backend, mask0, bound: int):
+        self.ops, self.adjs, self.tables = ops, adjs, tables
+        self.backend, self.mask, self.bound = backend, mask0, bound
+        self.query_rounds = mask0.to(torch.int32)
+        self.rounds = 0
+
+    def step(self) -> Optional[torch.Tensor]:
+        """Run one round; returns the lanes left changing (a device
+        scalar to read), or None once the bound is reached."""
+        if self.rounds:
+            self.query_rounds += self.mask
+        self.mask = _shard_round(self.ops, self.adjs, self.tables,
+                                 self.backend, self.mask)
+        self.rounds += 1
+        return self.mask.sum() if self.rounds < self.bound else None
+
+    def settle(self, left: int) -> bool:
+        return left > 0
+
+
+class _FrontierLoop:
+    """A shard's frontier rounds (reference ``shard_frontier_closure``'s
+    inner loop), one round a step: round 1 relaxes the seed rows, each
+    later round the rows the previous one changed."""
+
+    def __init__(self, ops, adjs, tables, backend, rows, rowmask0,
+                 n_active: int, bound: int):
+        self.ops, self.adjs, self.tables = ops, adjs, tables
+        self.backend, self.rows, self.rm = backend, rows, rowmask0
+        self.n_active, self.bound = n_active, bound
+        self.query_rounds = torch.zeros((rowmask0.shape[0],), dtype=torch.int32,
+                                        device=rowmask0.device)
+        self.rounds = self.rows_relaxed = 0
+
+    def step(self) -> Optional[torch.Tensor]:
+        self.query_rounds += self.rm.any(dim=1).to(torch.int32)
+        self.rm = _shard_frontier_round(self.ops, self.adjs, self.tables,
+                                        self.backend, self.rows, self.rm)
+        self.rows_relaxed += self.n_active
+        self.rounds += 1
+        return self.rm.sum() if self.rounds < self.bound else None
+
+    def settle(self, left: int) -> bool:
+        self.n_active = left
+        return left > 0
+
+
+def run_lockstep(loops) -> int:
+    """Advance the shards' loops together, a round at a time: every active
+    loop enqueues its round, then ONE blocking read takes all their
+    counts. Returns the number of reads."""
+    active, reads = list(loops), 0
+    while active:
+        pending = [(lp, c) for lp, c in ((lp, lp.step()) for lp in active)
+                   if c is not None]
+        if not pending:
+            break
+        dev = pending[0][1].device
+        left = device_get(torch.stack([c.to(dev) for _lp, c in pending]))
+        reads += 1
+        active = [lp for (lp, _c), v in zip(pending, left.tolist())
+                  if lp.settle(int(v))]
+    return reads
+
+
+def _at(x: Optional[torch.Tensor], dev: torch.device):
+    return None if x is None else x.to(dev)
+
+
+class _Operands:
+    """A dispatch's representation boundary: a shard's blocks encode when
+    it runs (inside the reference's run branch), each distinct adjacency
+    once, and results decode back to float32 timestamps."""
+
+    def __init__(self, backend: Backend, now, w_max):
+        self.backend, self.now, self.w_max = backend, now, w_max
+        self._adj: dict = {}
+
+    def encode(self, sh: Shard):
+        be = self.backend
+        ops = [be.prepare_state(b, None, _at(self.now, b.device),
+                                _at(self.w_max, b.device))[0]
+               for b in sh.blocks]
+        adjs = []
+        for a in sh.adjs:
+            if id(a) not in self._adj:
+                self._adj[id(a)] = be.prepare_state(
+                    None, a, _at(self.now, a.device), _at(self.w_max, a.device))[1]
+            adjs.append(self._adj[id(a)])
+        return ops, adjs
+
+    def decode(self, ops) -> List[torch.Tensor]:
+        return [self.backend.decode_state(d, _at(self.now, d.device),
+                                          _at(self.w_max, d.device))
+                for d in ops]
+
+
+def shards_closure(shards: Sequence[Shard], backend: BackendLike = None,
+                   max_rounds: int = 0, now=None, w_max=None):
+    """Every shard's closure of one dispatch (reference ``shard_closure``
+    per shard): a shard with no lane in its mask skips (no encode, no
+    round, 0 rounds), the others iterate to their own fixpoints in
+    lockstep. Returns ``([(blocks, rounds, query_rounds)] per shard,
+    host_syncs)``; blocks are the results in float32 (the inputs, updated
+    in place, for the float backends)."""
+    backend = resolve_backend(backend)
+    operands = _Operands(backend, now, w_max)
+    loops: List[Optional[_DenseLoop]] = []
+    for sh in shards:
+        if not sh.mask_host.any():
+            loops.append(None)
+            continue
+        n, k = sh.blocks[0].shape[1], sh.blocks[0].shape[3]
+        ops, adjs = operands.encode(sh)
+        loops.append(_DenseLoop(ops, adjs, sh.tables, backend, sh.mask,
+                                max_rounds if max_rounds > 0 else n * k + 1))
+    syncs = run_lockstep(lp for lp in loops if lp is not None)
+    out = []
+    for sh, lp in zip(shards, loops):
+        if lp is None:
+            out.append((sh.blocks, 0, torch.zeros_like(sh.mask, dtype=torch.int32)))
+        else:
+            out.append((operands.decode(lp.ops), lp.rounds, lp.query_rounds))
+    return out, syncs
+
+
+def shards_frontier(shards: Sequence[Shard], src: torch.Tensor,
+                    smask: torch.Tensor, f_cap: int, backend: BackendLike = None,
+                    max_rounds: int = 0, now=None, w_max=None,
+                    delete: bool = False):
+    """Every shard's frontier closure (``delete=False``, reference
+    ``shard_frontier_closure``) or cone-seeded delete (``delete=True``,
+    ``shard_frontier_delete``) of one dispatch. Each shard seeds its dirty
+    rows; ONE host read takes every shard's per-lane counts. A shard with
+    no dirty row skips; one whose lane overflows ``f_cap`` runs its own
+    dense loop (a delete from all -inf), the others their frontier rounds
+    (a delete clears its cone rows first), all in lockstep. Returns
+    ``([(blocks, rounds, query_rounds, FrontierStats)] per shard,
+    host_syncs)``."""
+    backend = resolve_backend(backend)
+    plans = []
+    for sh in shards:
+        dirty = _shard_dirty_rows(sh.blocks, src, smask, sh.mask)
+        plans.append((dirty, *pack_frontier(dirty, f_cap)))
+    home = shards[0].blocks[0].device
+    cnt_h = device_get(torch.cat([p[3].to(home) for p in plans]))
+    syncs = 1
+    operands = _Operands(backend, now, w_max)
+    loops, stats = [], []
+    q0 = 0
+    for sh, (dirty, rows, rowmask0, _cnt) in zip(shards, plans):
+        q_l, n, _n_m, k = sh.blocks[0].shape
+        c = cnt_h[q0:q0 + q_l]
+        q0 += q_l
+        overflow = bool((c > f_cap).any())
+        stats.append((int(c.sum()), int(c.max()), overflow))
+        if not (c > 0).any():
+            loops.append(None)
+            continue
+        bound = max_rounds if max_rounds > 0 else n * k + 1
+        if delete:
+            for b in sh.blocks:
+                if overflow:
+                    b.fill_(NEG_INF)
+                else:
+                    b.masked_fill_(dirty.to(b.device)[:, :, None, None], NEG_INF)
+        ops, adjs = operands.encode(sh)
+        if overflow:
+            loops.append(_DenseLoop(ops, adjs, sh.tables, backend, sh.mask, bound))
+        else:
+            loops.append(_FrontierLoop(ops, adjs, sh.tables, backend, rows,
+                                       rowmask0, int(np.minimum(c, f_cap).sum()),
+                                       bound))
+    syncs += run_lockstep(lp for lp in loops if lp is not None)
+    out = []
+    for sh, lp, (seed, top, overflow) in zip(shards, loops, stats):
+        if lp is None:
+            out.append((sh.blocks, 0, torch.zeros_like(sh.mask, dtype=torch.int32),
+                        FrontierStats(seed, top, 0, False)))
+            continue
+        relaxed = (lp.rounds * int(sh.mask_host.sum()) * sh.blocks[0].shape[1]
+                   if overflow else lp.rows_relaxed)
+        out.append((operands.decode(lp.ops), lp.rounds, lp.query_rounds,
+                    FrontierStats(seed, top, relaxed, overflow)))
+    return out, syncs
+
+
+# The single-shard entry points, the reference's names and return values:
+# ``blocks`` is a (Q_l, N, N_m, K) tensor or a list of the model peers'
+# blocks, ``adjs`` the whole (L, N, N) adjacency (one, or one per peer),
+# ``table`` the shard's BatchedTransitionTable (one, or one per peer).
+
+
+def _shard_of(blocks, adjs, table, query_mask) -> Shard:
+    blocks = blocks if isinstance(blocks, list) else [blocks]
+    adjs = adjs if isinstance(adjs, list) else [adjs] * len(blocks)
+    tables = table if isinstance(table, list) else [table] * len(blocks)
+    mask = torch.as_tensor(query_mask).to(blocks[0].device, torch.bool)
+    return Shard(blocks, adjs, tables, mask, device_get(mask))
+
+
+def _like(out: List[torch.Tensor], blocks):
+    return out if isinstance(blocks, list) else out[0]
+
+
+def shard_relax_round(blocks, adjs, table, query_mask,
+                      backend: BackendLike = None):
+    """One masked round of one lane shard on copies of its blocks
+    (reference ``shard_relax_round``): returns ``(new_blocks, changed)``,
+    changed (Q_l,) bool. Operands in the backend's representation."""
+    sh = _shard_of(blocks, adjs, table, query_mask)
+    new = [b.clone() for b in sh.blocks]
+    changed = _shard_round(new, sh.adjs, sh.tables, resolve_backend(backend),
+                           sh.mask)
+    return _like(new, blocks), changed
+
+
+def shard_closure(blocks, adjs, table, query_mask, backend: BackendLike = None,
+                  max_rounds: int = 0, now=None, w_max=None):
+    """One lane shard's closure with convergence-aware dispatch (reference
+    ``shard_closure``): skipped (0 rounds, blocks passed through) when no
+    lane is in ``query_mask``. Returns ``(blocks, rounds, query_rounds)``."""
+    (res, rounds, qrounds), = shards_closure(
+        [_shard_of(blocks, adjs, table, query_mask)], backend, max_rounds,
+        now, w_max)[0]
+    return _like(res, blocks), rounds, qrounds
+
+
+def _frontier_entry(delete, blocks, adjs, table, query_mask, src, smask, f_cap,
+                    backend, max_rounds, now, w_max):
+    (res, rounds, qrounds, st), = shards_frontier(
+        [_shard_of(blocks, adjs, table, query_mask)], src, smask, f_cap,
+        backend, max_rounds, now, w_max, delete)[0]
+    return (_like(res, blocks), rounds, qrounds, st.rows_relaxed, st.fell_back,
+            st.seed_rows, st.max_lane_rows)
+
+
+def shard_frontier_closure(blocks, adjs, table, query_mask, src, smask,
+                           f_cap: int, backend: BackendLike = None,
+                           max_rounds: int = 0, now=None, w_max=None):
+    """One lane shard's frontier ingest (reference
+    ``shard_frontier_closure``). Returns ``(blocks, rounds, query_rounds,
+    rows_relaxed, fell_back, seed_rows, max_lane_rows)``."""
+    return _frontier_entry(False, blocks, adjs, table, query_mask, src, smask,
+                           f_cap, backend, max_rounds, now, w_max)
+
+
+def shard_frontier_delete(blocks, adjs, table, query_mask, src, smask,
+                          f_cap: int, backend: BackendLike = None,
+                          max_rounds: int = 0, now=None, w_max=None):
+    """One lane shard's cone-seeded delete on its PRE-delete blocks and the
+    RETAINED adjacency (reference ``shard_frontier_delete``); the same
+    return value as :func:`shard_frontier_closure`."""
+    return _frontier_entry(True, blocks, adjs, table, query_mask, src, smask,
+                           f_cap, backend, max_rounds, now, w_max)

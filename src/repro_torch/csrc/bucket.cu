@@ -77,6 +77,7 @@ constexpr int kBK = 64;              // k per tile: the flag and skip granularit
 constexpr int kGroup = 4;            // k tiles per count (a 256-deep fold)
 constexpr int kTileBytes = (kBM + kBN) * kBK;            // 12 KB: a rows, b columns
 constexpr int kSmemBytes = 2 * kGroup * kTileBytes;      // 96 KB, two groups
+constexpr int kMaxDevices = 64;  // devices a process configures kernels for
 constexpr int kChunk = kThreads;     // k tiles listed at a time
 constexpr int kPreThreads = 256;
 constexpr int kMaxLevels = 127;      // levels are staged as int8
@@ -524,13 +525,18 @@ template <bool kCount>
 cudaError_t launch_product(const uint8_t* scratch, int* out, int J, int m, int k, int n,
                            const Layout& L, bool vec_out, unsigned long long* steps,
                            cudaStream_t stream) {
-  static bool configured = false;   // the attribute is set once per instantiation
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
+  // the attribute belongs to the device: set it once per instantiation and
+  // device (a launch on another card without it fails)
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices || !configured[dev]) {
+    err = cudaFuncSetAttribute(
         bucket_product_kernel<kCount>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kSmemBytes);
     if (err != cudaSuccess) return err;
-    configured = true;
+    if (dev < kMaxDevices) configured[dev] = true;
   }
   const dim3 grid(static_cast<unsigned>(L.CT), static_cast<unsigned>(L.RT),
                   static_cast<unsigned>(J));

@@ -90,6 +90,7 @@ constexpr int kBK = 16;       // k per stage: the skip granularity
 constexpr int kStages = 3;    // cp.async ring depth
 constexpr int kStageFloats = kBM * kBK + kBK * kBN;
 constexpr int kSmemBytes = kStages * kStageFloats * 4;   // 48 KB, dynamic
+constexpr int kMaxDevices = 64;  // devices a process configures kernels for
 constexpr int kSpanTiles = 32;  // occupancy flags per pre-pass block and row tile
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
@@ -477,13 +478,18 @@ template <typename T, bool VA, bool VB>
 cudaError_t launch_product(const T* a, const T* b, T* out, const uint8_t* fa,
                            const uint8_t* fb, int J, int m, int k, int n, bool vec_out,
                            cudaStream_t stream) {
-  static bool configured = false;   // the attribute is set once per instantiation
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
+  // the attribute belongs to the device: set it once per instantiation and
+  // device (a launch on another card without it fails)
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices || !configured[dev]) {
+    err = cudaFuncSetAttribute(
         maxmin_fused_kernel<T, VA, VB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kSmemBytes);
     if (err != cudaSuccess) return err;
-    configured = true;
+    if (dev < kMaxDevices) configured[dev] = true;
   }
   const dim3 grid(static_cast<unsigned>(cdiv(n, kBN)), static_cast<unsigned>(cdiv(m, kBM)),
                   static_cast<unsigned>(J));

@@ -1,2 +1,3 @@
-"""Fault tolerance of the port (``fault``): the checkpoint/restart loop,
+"""The mesh executor (``executor``: lanes and vertices sharded over a grid
+of devices) and fault tolerance (``fault``): the checkpoint/restart loop,
 the straggler monitor and the supervised service driver."""

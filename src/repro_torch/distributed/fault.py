@@ -1,5 +1,6 @@
 """Fault-tolerance helpers for long-running jobs — the counterpart of
-``repro.distributed.fault`` (the mesh executor joins this package later).
+``repro.distributed.fault`` (the mesh executor is its sibling,
+:mod:`repro_torch.distributed.executor`).
 
 * **checkpoint/restart loop** — `run_with_restarts` wraps a step function
   over a pytree of tensors (a dict of them, say), snapshots every

@@ -1,7 +1,7 @@
 """Persistent-query service: the end-to-end serving driver — the
-counterpart of ``repro.streaming.service`` for the local executor with
-the dense or ELL adjacency, the dense or row-sparse dist and every
-frontier mode.
+counterpart of ``repro.streaming.service`` for the local and the mesh
+executor with the dense or ELL adjacency, the dense or row-sparse dist and
+every frontier mode.
 
 Register RPQs (per-query engine choice + path semantics), ingest an
 ordered sgt stream with eager evaluation and lazy expiration (slide
@@ -42,8 +42,13 @@ layout differences. A query that fell back to the reference RSPQ
 checkpoints as a reference engine, so a service restoring such a
 snapshot registers it with ``engine="reference"``; registered as a dense
 simple lane again, the live query sets differ (``ValueError``), as in the
-JAX package. Not yet ported, and
-raising with its ROADMAP item: ``executor="mesh"`` (A11).
+JAX package.
+
+``executor="mesh"`` runs the group on a
+:class:`~repro_torch.distributed.executor.MeshExecutor`: lanes sharded
+over every visible CUDA card (``device=None``) or over the given device
+(``device="cpu"``: one shard on the CPU); a ``MeshExecutor`` instance
+with any device grid passes through as any executor does.
 """
 from __future__ import annotations
 
@@ -59,6 +64,7 @@ from ..core.contraction import resolve_backend
 from ..core.engine import BatchedDenseRPQEngine, PendingResults, RegisteredQuery
 from ..core.executor import Executor, LocalExecutor, _next_pow2, check_options
 from ..core.reference import RAPQ, RSPQ
+from ..distributed.executor import MeshExecutor
 from ..device import DeviceLike, resolve_device
 
 
@@ -174,10 +180,8 @@ class PersistentQueryService:
                  dist_layout: str = "dense",
                  dist_cap: int = 16,
                  device: DeviceLike = None):
-        if executor == "mesh":
-            raise NotImplementedError(
-                "executor='mesh' is not yet ported (ROADMAP A11)")
-        if not isinstance(executor, Executor) and executor != "local":
+        if not isinstance(executor, Executor) and executor not in ("local",
+                                                                   "mesh"):
             raise ValueError(
                 f"unknown executor {executor!r} (local | mesh | instance)")
         check_options(frontier=frontier, adj_layout=adj_layout,
@@ -223,12 +227,13 @@ class PersistentQueryService:
     def _make_executor(self, backend) -> Executor:
         if isinstance(self._executor_spec, Executor):
             return self._executor_spec
-        return LocalExecutor(backend, frontier=self._frontier,
-                             frontier_cap=self._frontier_cap,
-                             adj_layout=self._adj_layout,
-                             ell_cap=self._ell_cap,
-                             dist_layout=self._dist_layout,
-                             dist_cap=self._dist_cap, device=self._device)
+        options = dict(frontier=self._frontier, frontier_cap=self._frontier_cap,
+                       adj_layout=self._adj_layout, ell_cap=self._ell_cap,
+                       dist_layout=self._dist_layout, dist_cap=self._dist_cap)
+        if self._executor_spec == "mesh":
+            devices = None if self._device is None else [self._device]
+            return MeshExecutor(devices, backend=backend, **options)
+        return LocalExecutor(backend, device=self._device, **options)
 
     @staticmethod
     def _stats_delta(cur: Dict[str, object],

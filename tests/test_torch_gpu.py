@@ -4,7 +4,8 @@ the port's engine on the card against itself on the CPU (dense and
 row-sparse dist, the float and the bucket backend, and the legacy
 single-query closure); the service's checkpoints on the card (restored on
 the card with every executor tensor there, and across card and CPU) and
-the supervised service's crash-recovery identity on the card.
+the supervised service's crash-recovery identity on the card; the mesh
+executor over ``["cuda:0"] * 4`` against the local executor on the card.
 
 Marked ``gpu``; each skips (from the ``cuda`` fixture, never at import or
 collection) where there is no card. On the card:
@@ -798,3 +799,84 @@ def test_crash_recovery_identity_on_card(cuda, layout):
     *chaos, sup = run(cuda, plan)
     assert plan.exhausted and sup.restarts >= 4 and sup.recoveries
     assert tuple(chaos) == clean_cpu
+
+
+# -- the mesh executor on the card -------------------------------------------------
+
+MESH_CONFIGS = {"dense": dict(),
+                "sparse": dict(frontier="auto", frontier_cap=2, adj_layout="ell",
+                               ell_cap=2, dist_layout="row_sparse", dist_cap=2),
+                "bucket": dict(backend=BucketBackend(8))}
+
+
+def _mesh_state_tensors(ex):
+    """Every tensor the mesh holds between dispatches: its grids' blocks,
+    the adjacency (and ELL leaves), the row-sparse leaves and the clock."""
+    a = ex._arrays
+    out = _executor_tensors(a.adj) + _executor_tensors(a.now)
+    for part in (a.dist, a.emitted):
+        out += ([b for row in part.blocks for b in row]
+                if hasattr(part, "blocks") else _executor_tensors(part))
+    return out
+
+
+@pytest.mark.parametrize("cards", ["one", "every"])
+@pytest.mark.parametrize("grid", [(4, 1), (4, 2)], ids=["4x1", "2x2"])
+@pytest.mark.parametrize("config", sorted(MESH_CONFIGS))
+def test_mesh_on_card_equals_local_on_card(cuda, config, grid, cards):
+    """The mesh over ``["cuda:0"] * 4`` (``cards="one"``), or over four
+    distinct cards (``"every"``: the peers' fold and the result joins copy
+    across cards; skipped on fewer than four), equals the local executor
+    on the first card per event; B1 (or B3 with the bucket backend)
+    launches once per shard-round per model peer, B5 and B6 never; no
+    state tensor on the CPU."""
+    from repro_torch.distributed.executor import MeshExecutor
+
+    k, model_axis = grid
+    devices = [f"cuda:{torch.cuda.current_device()}"] * k
+    if cards == "every":
+        if torch.cuda.device_count() < k:
+            pytest.skip(f"needs {k} CUDA cards")
+        devices = [f"cuda:{i}" for i in range(k)]
+    opts = dict(MESH_CONFIGS[config])
+    backend = opts.pop("backend", None)
+    specs = [RegisteredQuery(n, compile_query(e), 20.0, s) for n, e, s in
+             [("q1", "a2q . c2a*", "arbitrary"), ("q2", "(a2q | c2a | c2q)+", "arbitrary"),
+              ("q3", "a2q . c2a* . c2q*", "simple")]]
+    local = BatchedDenseRPQEngine(specs, n_slots=16, batch_size=1, backend=backend,
+                                  device=cuda, **opts)
+    ex = MeshExecutor(devices, model_axis=model_axis, backend=backend, **opts)
+    mesh = BatchedDenseRPQEngine(specs, n_slots=16, batch_size=1, executor=ex)
+    kernels = (b1.maxmin_matmul_fused, b3.bucket_maxmin_fused,
+               b5.ell_contract_rows, b6.rowsparse_gather)
+    mesh_launches = [0, 0, 0, 0]
+    nxt = 2.0
+    for sgt in with_deletions(so_like(n_vertices=24, n_edges=120, seed=4),
+                              ratio=0.05, seed=2):
+        if sgt.ts >= nxt:
+            local.expire(sgt.ts)
+            mesh.expire(sgt.ts)
+            while nxt <= sgt.ts:
+                nxt += 2.0
+        fn = "insert" if sgt.op == "+" else "delete"
+        want = getattr(local, fn)(*sgt.as_edge())
+        before = [kern.launches for kern in kernels]
+        got = getattr(mesh, fn)(*sgt.as_edge())
+        torch.cuda.synchronize()
+        mesh_launches = [m + kern.launches - b
+                         for m, kern, b in zip(mesh_launches, kernels, before)]
+        assert got[:3] == want[:3], sgt
+    if "frontier" not in opts:
+        # a frontier delete and a dense fallback agree above the window
+        # threshold only, and the mesh falls back per shard
+        md = mesh.executor.dense_dist()   # lanes padded to the shard count
+        assert torch.equal(md[:local.q_cap], local.executor.dense_dist())
+        assert not bool((md[local.q_cap:] > float("-inf")).any())
+    per_round = ex.n_model * ex.shard_rounds_total
+    assert mesh_launches == ([0, per_round, 0, 0] if config == "bucket"
+                             else [per_round, 0, 0, 0])
+    assert ex.shard_rounds_total + ex.skipped_shard_rounds_total == \
+        ex.n_shards * ex.sync_rounds_total
+    tensors = _mesh_state_tensors(ex)
+    assert tensors and {t.device.type for t in tensors} == {"cuda"}
+    assert {t.device for t in tensors} == {torch.device(d) for d in devices}

@@ -3,19 +3,21 @@ scenario of examples/streaming_service.py (mixed dense/reference engines,
 both path semantics, 2% explicit deletions, two ingest calls) scaled down
 and without the snapshot, compared report for report. Also: the RSPQ
 fallback, the async-decode FIFO, adaptive batching, the frontier and ELL
-options with their telemetry logs, the bucket backend, the option not
-yet ported, and that importing the port loads neither JAX nor
-``repro``."""
+options with their telemetry logs, the bucket backend, the executor
+names (the mesh builds on the CPU when asked), and that importing the
+port loads neither JAX nor ``repro``."""
 import subprocess
 import sys
 import tempfile
 from pathlib import Path
 
 import pytest
+import torch
 
 from repro.core.backend import BucketBackend as JaxBucket
 from repro.streaming.service import PersistentQueryService as JaxService
 from repro_torch.core.contraction import BucketBackend
+from repro_torch.distributed.executor import MeshExecutor
 from repro_torch.streaming.generators import so_like, with_deletions
 from repro_torch.streaming.service import PersistentQueryService
 from repro_torch.streaming.stream import Stream
@@ -90,9 +92,17 @@ def test_adaptive_batch_and_live_registration():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="A11"):
-        PersistentQueryService(window=5.0, slide=1.0, executor="mesh",
-                               device="cpu")
+    # the mesh executor is ported: on the CPU when the service says so
+    mesh = PersistentQueryService(window=5.0, slide=1.0, executor="mesh",
+                                  device="cpu")
+    mesh.register("q", "a*")
+    ex = mesh.queries["q"].executor
+    assert isinstance(ex, MeshExecutor)
+    assert ex.grid == [[torch.device("cpu")]]
+    for name in ("sharded", "Mesh"):
+        with pytest.raises(ValueError, match="unknown executor"):
+            PersistentQueryService(window=5.0, slide=1.0, executor=name,
+                                   device="cpu")
     PersistentQueryService(window=5.0, slide=1.0, frontier="auto",
                            adj_layout="ell", device="cpu")
     PersistentQueryService(window=5.0, slide=1.0, dist_layout="row_sparse",
@@ -162,7 +172,8 @@ def test_import_loads_neither_jax_nor_the_reference_package():
             "repro_torch.kernels.rowsparse.rowsparse, "
             "repro_torch.kernels.bucket.bucket, repro_torch.kernels.bucket.ops, "
             "repro_torch.checkpoint.ckpt, repro_torch.streaming.wal, "
-            "repro_torch.streaming.supervisor, repro_torch.distributed.fault; "
+            "repro_torch.streaming.supervisor, repro_torch.distributed.fault, "
+            "repro_torch.distributed.executor; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.')]; "
             "assert not bad, bad")
