@@ -176,8 +176,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    stream time with the same log, and the sync rounds equal phase 4's
    closure rounds; (b) vertices (2x2: two lane shards, each over two model
    peers that fold their partials with max) and (c) the sparse layouts
-   (2x2, ``frontier="auto"``, ELL, row-sparse: densified per dispatch, so
-   cut to the first 512 inserts at n_slots=2048 from phase 8's 8192; also
+   (2x2, ``frontier="auto"``, ELL, row-sparse: each lane shard's slab
+   densified per dispatch, so cut to n_slots=2048 from phase 8's 8192; also
    against a local run of that configuration) on phase 4's first 512
    inserts, against phase 4's log prefix; (d) ``BucketBackend(8)`` on the
    lane grid over that prefix against phase 10's dense bucket run. Each
@@ -187,7 +187,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    converge together), B1 (B3 in (d)) launched exactly n_model x shard_rounds
    times and B5 and B6 never, and prints sgts/s and dispatch p50/p99
    beside phase 4's, the shard-rounds run and skipped, peak device memory
-   and ``nvidia-smi``'s name and power limit.
+   and ``nvidia-smi``'s name and power limit. The state lies at rest as
+   the reference lays it out (each model peer's u-row and v-column
+   adjacency blocks, views of one slab on one card; a row-sparse dist's
+   slot leaves per lane shard): leg (c)'s configuration runs its first
+   ``MESH_SPY_SGTS`` sgts again with every ingest and delete dispatch
+   under a spy (tests/_torch_spy.py) that fails if one allocates a whole
+   (L, N, N) adjacency or (Q, N, N, K) dist, or moves an adjacency block.
+15. the dry run on the card (``repro_torch.launch.dryrun_rpq``): on the
+   16x16 production grid, for each of its three cells (n_slots 4096, 8192,
+   16384) and the modes baseline, mxu (B3), ring, batched (B1),
+   batched-mxu_bucket (B3) and batched-frontier (B1 on (F, N) slabs),
+   device (0, 0)'s blocks made from a seeded generator and its share of
+   one round run with the kernels: its CUDA-event time, peak memory,
+   whether it fits the card, the collective bytes the layout implies per
+   round and the bound, one line per record beside ``nvidia-smi``'s name
+   and power limit. At n_slots=4096 each share equals the same share run
+   with the plain versions on the card (``torch.equal``); B1's and B3's
+   counters move by exactly the launches the shares make. The records go
+   to ``chiprun_out/dryrun_rpq/``.
 
 The last three lines of standard output are the kernels JSON line, the
 ``nvidia-smi`` name/power-limit line, and the ``{"ok": true, ...}`` line.
@@ -261,6 +279,10 @@ BREAKER_INSERTS = 512     # phase 13's breaker leg
 BREAKER_HEALTH_EVERY = 8  # batches a health interval in the breaker leg
 MESH_DEVICES = 4          # phase 14: shards over ["cuda:0"] * 4
 MESH_PREFIX_INSERTS = 512  # phase 14's legs (b)-(d): phase 4's first inserts
+MESH_SPY_SGTS = 96        # phase 14 (c): sgts run again under the dispatch spy
+DRYRUN_MODES = ("baseline", "mxu", "ring", "batched", "batched-mxu_bucket",
+                "batched-frontier")   # phase 15, on the 16x16 grid
+DRYRUN_REPEATS = 3        # phase 15: timed shares after the warm-up
 
 
 def fail(msg: str) -> None:
@@ -1047,6 +1069,9 @@ def main() -> None:
     mesh14 = mesh_phase(torch, queries, smi_line, p4, bk, device=None,
                         n_slots=n_slots)
 
+    # -- 15. the dry run: one device's share of a round on the production grid
+    dry15 = dryrun_phase(torch, smi_line)
+
     e5, b6p = b5_rows["frontier"], b6_rows["path"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
 
@@ -1076,7 +1101,10 @@ def main() -> None:
                         "breaker_launches": sup13["breaker_launches"]["b1"]},
          # phase 14: the mesh legs (lanes, vertices, sparse layouts)
          "mesh": {"launches": {k: mesh14[k]["b1"]
-                               for k in ("lanes", "vertices", "sparse")}}},
+                               for k in ("lanes", "vertices", "sparse")}},
+         # phase 15: the dry run's shares (ring, baseline, batched,
+         # batched-frontier), each cell's share run 2 + repeats times
+         "dryrun": dry15["B1"]},
         row("B2 maxmin_matmul", "maxmin", "src/repro/kernels/maxmin/maxmin.py:67",
             legacy["b2_launches"], lvl_rows["B2"]["max_abs_err"], lvl_rows["B2"]),
         # B3's numbers are on the main path's own operands (phase 10's last
@@ -1087,7 +1115,9 @@ def main() -> None:
          "path_operands": {k: bk["path"][k] for k in bk["path"] if k not in keys},
          "uniform": lvl_rows["B3 uniform"], "worst": lvl_rows["B3 worst"],
          # phase 14: the mesh's bucket leg
-         "mesh": {"launches": {"bucket": mesh14["bucket"]["b3"]}}},
+         "mesh": {"launches": {"bucket": mesh14["bucket"]["b3"]}},
+         # phase 15: the dry run's mxu and batched-mxu_bucket shares
+         "dryrun": dry15["B3"]},
         row("B4 bucket_maxmin", "bucket", "src/repro/kernels/bucket/bucket.py:24",
             legacy["b4_launches"], lvl_rows["B4"]["max_abs_err"], lvl_rows["B4"]),
         # B5's numbers are its whole entry's at the frontier's shape on
@@ -2636,7 +2666,7 @@ def mesh_phase(torch, queries, smi: str, p4, bucket_run, device=None,
     legs["vertices"] = b["launches"]
     del b
 
-    # (c) the sparse layouts, densified per dispatch: a 2x2 grid and a local
+    # (c) the sparse layouts, relaxed as dense slabs: a 2x2 grid and a local
     # run of the same configuration, on the prefix
     sparse = dict(**ELL_LAYOUT, **RS_DIST)
     c = run("mesh-sparse", MeshExecutor(grid4, model_axis=2, **sparse), prefix)
@@ -2655,6 +2685,36 @@ def mesh_phase(torch, queries, smi: str, p4, bucket_run, device=None,
     legs["sparse"] = c["launches"]
     del c, local
 
+    # leg (c)'s configuration again over its first sgts, every ingest and
+    # delete dispatch under the spy (a dispatch-mode hook on every operator:
+    # slow, so apart from the timed run)
+    from _torch_spy import spy_dispatches
+
+    svc = PersistentQueryService(window=window, slide=slide, device=device,
+                                 executor=MeshExecutor(grid4, model_axis=2, **sparse))
+    for name, expr in queries.items():
+        svc.register(name, expr, engine="dense", n_slots=n_slots, batch_size=1)
+    for name in ("Q2", "Q3"):
+        svc.register(f"{name}_simple", queries[name], engine="dense",
+                     path_semantics="simple", n_slots=n_slots, batch_size=1)
+    svc._ensure_group()
+    ex = svc._group.executor
+    spy = spy_dispatches(ex)
+    q, n, _, k = ex.dist_shape
+    j_s = max(t.qidx.shape[0] for t in ex._lane_tables(svc._group.tables)[0])
+    if j_s * n * n >= q * n * n * k or j_s == ex.adj_shape[0]:
+        fail(f"mesh-spy: a (J_s={j_s}, N, N) partial would pass for a whole slab")
+    svc.ingest(Stream(prefix[:MESH_SPY_SGTS]))
+    if spy.new or spy.moved:
+        fail(f"mesh-spy: a dispatch built a whole slab {spy.new[:4]} or moved "
+             f"an adjacency block {spy.moved[:4]}")
+    print(f"[mesh-spy] leg (c)'s configuration over its first {MESH_SPY_SGTS} "
+          f"sgts ({ex.steps} dispatches): no whole (L, N, N) = "
+          f"{ex.adj_shape} adjacency or (Q, N, N, K) = {ex.dist_shape} dist "
+          f"allocated, no adjacency block moved; ELL replicas on "
+          f"{sorted(str(d) for d in ex._ell_reps)}", flush=True)
+    del svc, ex
+
     # (d) the bucket backend on the lane grid, against phase 10's dense run
     d = run("mesh-bucket", MeshExecutor(grid4, backend=BucketBackend(BUCKET_LEVELS)),
             prefix, backend=BucketBackend(BUCKET_LEVELS), simple=False)
@@ -2667,6 +2727,66 @@ def mesh_phase(torch, queries, smi: str, p4, bucket_run, device=None,
     if on_card:
         torch.cuda.empty_cache()
     return legs
+
+
+def dryrun_phase(torch, smi: str, device=None, cells=None, results_dir=None,
+                 repeats: int = DRYRUN_REPEATS):
+    """Phase 15: ``repro_torch.launch.dryrun_rpq`` on the 16x16 grid for
+    ``cells`` (default: its RPQ_CELLS) and ``DRYRUN_MODES``, each record
+    forced anew; at the first cell every share is held against its plain
+    version. B1's and B3's counters are set to 0 just before and read just
+    after: each cell's share runs once, once as the warm-up and
+    ``repeats`` times timed, so the phase launches (2 + repeats) x each
+    share's own launches. ``device``, ``cells`` and ``results_dir`` let it
+    rehearse on the CPU at a tiny cell. Returns the launches by kernel and
+    cell/mode, and the records."""
+    from repro_torch.kernels.bucket import bucket as b3
+    from repro_torch.kernels.maxmin import maxmin as b1
+    from repro_torch.launch import dryrun_rpq as dr
+
+    on_card = device is None
+    cells = dr.RPQ_CELLS if cells is None else cells
+    b1.maxmin_matmul_fused.launches = 0
+    b3.bucket_maxmin_fused.launches = 0
+    want = {"B1": 0, "B3": 0}
+    out = {"B1": {}, "B3": {}, "records": []}
+    t0 = time.perf_counter()
+    for i, (name, n, query, vc) in enumerate(cells):
+        for mode in DRYRUN_MODES:
+            r = dr.run_rpq_cell(name, n, query, vc, False, force=True, mode=mode,
+                                device=device, repeats=repeats,
+                                check_plain=i == 0, results_dir=results_dir)
+            tag = f"{name}/{mode}"
+            if on_card and r["launches"] != r["expected_launches"]:
+                fail(f"dryrun {tag}: launches {r['launches']} != "
+                     f"{r['expected_launches']}")
+            if i == 0 and not r["plain_equal"]:
+                fail(f"dryrun {tag}: the share differs from its plain version "
+                     f"(max abs err {r['max_abs_err']})")
+            if on_card and not r["fits_hbm"]:
+                fail(f"dryrun {tag}: peak {r['peak_bytes_per_chip']} B exceeds the card")
+            for kern in want:
+                want[kern] += (2 + repeats) * r["launches"][kern]
+                if r["launches"][kern]:
+                    out[kern][tag] = (2 + repeats) * r["launches"][kern]
+            plain = (f"; plain version {r['plain_ms']} ms, equal"
+                     if i == 0 else "")
+            print(f"[dryrun] {tag} x {r['mesh']} device (0, 0) "
+                  f"{r['block_shapes']}: {r['device_ms']} ms a share (mean of "
+                  f"{repeats}), bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
+                  f"launches {r['launches']}, peak {r['peak_bytes_per_chip']} B "
+                  f"of {r['state_bytes_per_chip']:.0f} B state a chip, fits "
+                  f"{r['fits_hbm']}, wire {r['collective_wire_bytes_extrap']:.0f} "
+                  f"B/round {r['collectives_by_kind_extrap']}{plain}; "
+                  f"{r['device']}", flush=True)
+            out["records"].append(r)
+    got = {"B1": b1.maxmin_matmul_fused.launches,
+           "B3": b3.bucket_maxmin_fused.launches}
+    if on_card and got != want:
+        fail(f"dryrun: launches {got} != the shares' {want}")
+    print(f"[dryrun] {len(out['records'])} records in "
+          f"{time.perf_counter() - t0:.3f} s; launches {got}; {smi}", flush=True)
+    return out
 
 
 if __name__ == "__main__":

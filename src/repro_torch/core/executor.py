@@ -72,14 +72,17 @@ from .sparse_adj import (
     EllAdjacency,
     ell_clear_slots,
     ell_delete,
+    ell_entries_degree,
     ell_expire,
     ell_incident,
     ell_insert,
+    ell_live_entries,
     ell_max_degree,
     ell_to_dense,
     from_numpy,
     pack_ell,
     pack_ell_dense,
+    pack_ell_entries,
 )
 
 FRONTIER_MODES = ("off", "on", "auto")
@@ -733,13 +736,24 @@ class Executor:
             self._spill_budget = 0
 
     def _repack_ell(self) -> None:
-        """Re-pack at the current capacities on the device: densify, pack
-        the rows (ring folded in, then emptied). Growth and compaction
-        reuse this; dist/emitted stay resident."""
-        dense = ell_to_dense(self._arrays.adj)
-        self._arrays = self._arrays._replace(adj=self._pack_device(dense))
+        """Re-pack at the current capacities on the device: the live
+        entries (ring folded in, then emptied) into rows, growing
+        ``ell_cap`` to the max degree. Growth and compaction reuse this;
+        dist/emitted stay resident."""
+        self._arrays = self._arrays._replace(adj=self._repack(self._arrays.adj))
         self._ell_repacks += 1
-        self._ell_live_edges = int(device_get((dense > NEG_INF).sum()))
+
+    def _repack(self, ell: EllAdjacency) -> EllAdjacency:
+        """:func:`pack_ell_dense` of ``ell``'s canonical slab, from its
+        live entries (no (L, N, N) slab)."""
+        keys, ts = ell_live_entries(ell)
+        need = ell_entries_degree(keys, ell.n_labels, ell.n_slots)
+        while self.ell_cap < need:
+            self.ell_cap *= 2
+        self._spill_budget = 0
+        self._ell_live_edges = int(keys.numel())
+        return pack_ell_entries(keys, ts, ell.n_labels, ell.n_slots,
+                                self.ell_cap, self.spill_cap)
 
     @property
     def adjacency_stats(self) -> Dict[str, object]:

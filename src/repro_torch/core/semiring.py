@@ -955,15 +955,105 @@ def _peer_cols(m: int, n_m: int) -> slice:
     return slice(m * n_m, (m + 1) * n_m)
 
 
+# A shard round is three steps: each peer contracts its u block
+# (peer_partial), the peers' partials fold with max (_fold_peers), and each
+# peer takes the base term on its v columns and updates its block
+# (peer_update). The frontier round has the same three. Given fewer blocks
+# than its ``n_model`` peers, a round runs only those peers' shares, the
+# missing peers' partials stood in by the first's in the fold: one device's
+# share, which launch/dryrun_rpq.py times.
+
+
+def peer_partial(blk: torch.Tensor, adj_u: torch.Tensor,
+                 t: BatchedTransitionTable, backend: Backend) -> torch.Tensor:
+    """Step 1 of a shard round on one model peer: the (J, N, N) partial of
+    its (Q_l, N, N_m, K) block's gathered rows [x, u_m] against its u-row
+    block ``adj_u`` (L, N_m, N) of each row's label (kernel B1, or B3 on
+    the bucket backend, on the card)."""
+    d_s = blk[t.qidx, :, :, t.src]                    # (J, N, N_m) [x, u_m]
+    a_u = adj_u[t.lab]                                # (J, N_m, N) [u_m, v]
+    return backend.contract_rows(d_s, a_u)
+
+
 def _fold_peers(parts: List[torch.Tensor]) -> List[torch.Tensor]:
-    """The reference's pmax: the peers' (J, M, N) partials folded with max
-    on the first peer's device, then each peer's v columns, on its own."""
+    """Step 2, the reference's pmax: the peers' (J, M, N) partials folded
+    with max into the first one, on its device, then each peer's v
+    columns, on its own. A partial may appear more than once (the dry run
+    stands one peer's in for the others')."""
     n_m = parts[0].shape[-1] // len(parts)
     full = parts[0]
     for p in parts[1:]:
-        full = torch.maximum(full, p.to(full.device, non_blocking=True))
+        torch.maximum(full, p.to(full.device, non_blocking=True), out=full)
     return [full[..., _peer_cols(m, n_m)].to(p.device, non_blocking=True)
             for m, p in enumerate(parts)]
+
+
+def peer_update(blk: torch.Tensor, adj_v: torch.Tensor,
+                t: BatchedTransitionTable, backend: Backend,
+                mask: torch.Tensor, contrib: torch.Tensor) -> torch.Tensor:
+    """Step 3 of a shard round on one model peer: its folded (J, N, N_m)
+    columns masked to the active rows of the lanes in ``mask``, the base
+    term on the active start rows from its v-column block ``adj_v`` (L, N,
+    N_m), the segment max into (lane, state) slices, and the max into
+    ``blk`` in place. Returns the (Q_l,) lanes whose block changed."""
+    q_l, k = blk.shape[0], blk.shape[3]
+    active = t.active & mask.to(blk.device)[t.qidx]
+    contrib.masked_fill_(~active[:, None, None], backend.zero)
+    s = t.start_idx
+    if s.numel():
+        sub = contrib.index_select(0, s)
+        base = adj_v[t.lab.index_select(0, s)]
+        sub = torch.where(active.index_select(0, s)[:, None, None],
+                          torch.maximum(sub, base), sub)
+        contrib.index_copy_(0, s, sub)
+        del sub, base
+    upd = _segment_max(contrib, t.qidx * k + t.dst, q_l, k)
+    changed = (upd > blk).reshape(q_l, -1).any(dim=1)
+    torch.maximum(blk, upd, out=blk)
+    return changed
+
+
+def peer_frontier_partial(blk: torch.Tensor, adj_u: torch.Tensor,
+                          t: BatchedTransitionTable, backend: Backend,
+                          rows: torch.Tensor):
+    """Step 1 of a frontier round on one model peer: gather its (Q_l, F,
+    N_m, K) slab at the frontier ``rows`` (Q_l, F) and contract it against
+    its u block. Returns ``(partial (J, F, N), slab, flat row ids)``."""
+    q_l, n, n_m, k = blk.shape
+    f = rows.shape[1]
+    flat = (torch.arange(q_l, device=blk.device)[:, None] * n
+            + rows.to(blk.device)).reshape(-1)
+    slab = blk.view(q_l * n, -1).index_select(0, flat).view(q_l, f, n_m, k)
+    slab_s = slab[t.qidx, :, :, t.src].contiguous()   # (J, F, N_m) [f, u_m]
+    a_u = adj_u[t.lab]                                # (J, N_m, N)
+    return backend.contract_rows(slab_s, a_u), slab, flat
+
+
+def peer_frontier_update(blk: torch.Tensor, adj_v: torch.Tensor,
+                         t: BatchedTransitionTable, backend: Backend,
+                         rows: torch.Tensor, rowmask: torch.Tensor,
+                         contrib: torch.Tensor, slab: torch.Tensor,
+                         flat: torch.Tensor) -> torch.Tensor:
+    """Step 3 of a frontier round on one model peer: the base term at the
+    frontier rows of its v columns, the row mask, the segment max into its
+    slab and the slab max-scattered back into ``blk`` in place. Returns
+    the (Q_l, F) rows that changed."""
+    q_l, n, _n_m, k = blk.shape
+    f = rows.shape[1]
+    rows_m, rm = rows.to(blk.device), rowmask.to(blk.device)
+    rows_j = rows_m[t.qidx]                            # (J, F)
+    a_base = adj_v[t.lab[:, None], rows_j]
+    base_rows = t.start_mask & t.active
+    contrib = torch.where(base_rows[:, None, None],
+                          torch.maximum(contrib, a_base), contrib)
+    act = t.active[:, None] & rm[t.qidx]               # (J, F)
+    contrib.masked_fill_(~act[:, :, None], backend.zero)
+    upd = _segment_max(contrib, t.qidx * k + t.dst, q_l, k)
+    new_slab = torch.maximum(slab, upd)
+    changed = (new_slab > slab).flatten(2).any(dim=2) & rm
+    blk.view(q_l * n, -1).index_reduce_(
+        0, flat, new_slab.reshape(q_l * f, -1), "amax", include_self=True)
+    return changed
 
 
 def _or_peers(flags: List[torch.Tensor]) -> torch.Tensor:
@@ -974,87 +1064,51 @@ def _or_peers(flags: List[torch.Tensor]) -> torch.Tensor:
     return out
 
 
-def _shard_round(blocks: List[torch.Tensor], adjs: List[torch.Tensor],
+def _shard_round(blocks: List[torch.Tensor], adj_u: List[torch.Tensor],
+                 adj_v: List[torch.Tensor],
                  tables: List[BatchedTransitionTable], backend: Backend,
-                 mask: torch.Tensor) -> torch.Tensor:
+                 mask: torch.Tensor, n_model: int = 0) -> torch.Tensor:
     """One masked round of a lane shard (reference :1061-1119), in place
-    on its peers' (Q_l, N, N_m, K) blocks in the backend's representation;
-    ``adjs`` holds each peer's whole (L, N, N) adjacency. Returns the
-    (Q_l,) lanes that changed, on the first peer's device. One peer is
-    the local round on the block."""
-    if len(blocks) == 1:
-        return _relax_in_place(blocks[0], adjs[0], tables[0], backend, mask)
-    q_l, n, n_m, k = blocks[0].shape
-    parts = []
-    for m, (blk, adj, t) in enumerate(zip(blocks, adjs, tables)):
-        d_s = blk[t.qidx, :, :, t.src]                    # (J, N, N_m) [x, u_m]
-        a_u = adj[:, _peer_cols(m, n_m)][t.lab]           # (J, N_m, N) [u_m, v]
-        parts.append(backend.contract_rows(d_s, a_u))     # (J, N, N) partial
-        del d_s, a_u
-    changed = []
-    for m, (blk, adj, t, contrib) in enumerate(
-            zip(blocks, adjs, tables, _fold_peers(parts))):
-        active = t.active & mask.to(blk.device)[t.qidx]
-        contrib.masked_fill_(~active[:, None, None], backend.zero)
-        s = t.start_idx
-        if s.numel():
-            # base term on the active start rows, this peer's v columns
-            sub = contrib.index_select(0, s)
-            base = adj[:, :, _peer_cols(m, n_m)][t.lab.index_select(0, s)]
-            sub = torch.where(active.index_select(0, s)[:, None, None],
-                              torch.maximum(sub, base), sub)
-            contrib.index_copy_(0, s, sub)
-            del sub, base
-        upd = _segment_max(contrib, t.qidx * k + t.dst, q_l, k)
-        changed.append((upd > blk).reshape(q_l, -1).any(dim=1))
-        torch.maximum(blk, upd, out=blk)
+    on its peers' (Q_l, N, N_m, K) blocks in the backend's representation,
+    with each peer's u-row and v-column adjacency blocks. Returns the
+    (Q_l,) lanes that changed, on the first peer's device. One peer is the
+    local round on the block. ``n_model`` (default: one peer a block)
+    larger than the blocks given stands the missing peers in (above)."""
+    n_model = n_model or len(blocks)
+    if n_model == 1:
+        return _relax_in_place(blocks[0], adj_u[0], tables[0], backend, mask)
+    parts = [peer_partial(b, a, t, backend)
+             for b, a, t in zip(blocks, adj_u, tables)]
+    folded = _fold_peers(parts + parts[:1] * (n_model - len(parts)))
+    changed = [peer_update(b, a, t, backend, mask, c)
+               for b, a, t, c in zip(blocks, adj_v, tables, folded)]
     return mask & _or_peers(changed)
 
 
-def _shard_frontier_round(blocks: List[torch.Tensor], adjs: List[torch.Tensor],
+def _shard_frontier_round(blocks: List[torch.Tensor], adj_u: List[torch.Tensor],
+                          adj_v: List[torch.Tensor],
                           tables: List[BatchedTransitionTable], backend: Backend,
-                          rows: torch.Tensor, rowmask: torch.Tensor
-                          ) -> torch.Tensor:
+                          rows: torch.Tensor, rowmask: torch.Tensor,
+                          n_model: int = 0) -> torch.Tensor:
     """One frontier round of a lane shard (reference :1222-1262), in place
-    on its peers' blocks: each peer gathers its (Q_l, F, N_m, K) slab,
+    on its peers' blocks: each peer gathers its (Q_l, F, N_m, K) slab and
     contracts its u block, and after the fold takes the base term at the
     frontier rows of its v columns and max-scatters its slab back.
     Returns the (Q_l, F) rows that changed (first peer's device). One
-    peer is :func:`frontier_relax_round` on the block."""
-    if len(blocks) == 1:
-        return frontier_relax_round(blocks[0], adjs[0], tables[0], backend,
+    peer is :func:`frontier_relax_round` on the block; ``n_model`` as in
+    :func:`_shard_round`."""
+    n_model = n_model or len(blocks)
+    if n_model == 1:
+        return frontier_relax_round(blocks[0], adj_u[0], tables[0], backend,
                                     rows, rowmask)[1]
-    q_l, n, n_m, k = blocks[0].shape
-    f = rows.shape[1]
-    parts, slabs, flats = [], [], []
-    for m, (blk, adj, t) in enumerate(zip(blocks, adjs, tables)):
-        flat = (torch.arange(q_l, device=blk.device)[:, None] * n
-                + rows.to(blk.device)).reshape(-1)
-        slab = blk.view(q_l * n, -1).index_select(0, flat).view(q_l, f, n_m, k)
-        slab_s = slab[t.qidx, :, :, t.src].contiguous()   # (J, F, N_m) [f, u_m]
-        a_u = adj[:, _peer_cols(m, n_m)][t.lab]           # (J, N_m, N)
-        parts.append(backend.contract_rows(slab_s, a_u))  # (J, F, N) partial
-        slabs.append(slab)
-        flats.append(flat)
-        del slab_s, a_u
-    changed = []
-    for m, (blk, adj, t, contrib) in enumerate(
-            zip(blocks, adjs, tables, _fold_peers(parts))):
-        rows_m, rm = rows.to(blk.device), rowmask.to(blk.device)
-        rows_j = rows_m[t.qidx]                            # (J, F)
-        a_base = adj[:, :, _peer_cols(m, n_m)][t.lab[:, None], rows_j]
-        base_rows = t.start_mask & t.active
-        contrib = torch.where(base_rows[:, None, None],
-                              torch.maximum(contrib, a_base), contrib)
-        act = t.active[:, None] & rm[t.qidx]               # (J, F)
-        contrib.masked_fill_(~act[:, :, None], backend.zero)
-        upd = _segment_max(contrib, t.qidx * k + t.dst, q_l, k)
-        new_slab = torch.maximum(slabs[m], upd)
-        changed.append((new_slab > slabs[m]).flatten(2).any(dim=2) & rm)
-        blk.view(q_l * n, -1).index_reduce_(
-            0, flats[m], new_slab.reshape(q_l * f, -1), "amax",
-            include_self=True)
-    return _or_peers(changed)
+    steps = [peer_frontier_partial(b, a, t, backend, rows)
+             for b, a, t in zip(blocks, adj_u, tables)]
+    parts = [s[0] for s in steps]
+    folded = _fold_peers(parts + parts[:1] * (n_model - len(parts)))
+    return _or_peers([
+        peer_frontier_update(b, a, t, backend, rows, rowmask, c, slab, flat)
+        for b, a, t, c, (_p, slab, flat)
+        in zip(blocks, adj_v, tables, folded, steps)])
 
 
 def _shard_dirty_rows(blocks: List[torch.Tensor], src: torch.Tensor,
@@ -1082,13 +1136,16 @@ def _shard_dirty_rows(blocks: List[torch.Tensor], src: torch.Tensor,
 
 
 class Shard(NamedTuple):
-    """One lane shard of a dispatch: its model peers' dist blocks, whole
-    adjacencies and transition tables (one each per peer, on the peer's
-    device), and its (Q_l,) query mask on the first peer's device with its
-    host mirror (the skip decision reads the mirror, never the device)."""
+    """One lane shard of a dispatch: its model peers' dist blocks, u-row
+    (L, N_m, N) and v-column (L, N, N_m) adjacency blocks and transition
+    tables (one each per peer, on the peer's device; with one peer both
+    blocks are the whole adjacency), and its (Q_l,) query mask on the
+    first peer's device with its host mirror (the skip decision reads the
+    mirror, never the device)."""
 
     blocks: List[torch.Tensor]
-    adjs: List[torch.Tensor]
+    adj_u: List[torch.Tensor]
+    adj_v: List[torch.Tensor]
     tables: List[BatchedTransitionTable]
     mask: torch.Tensor
     mask_host: np.ndarray
@@ -1100,7 +1157,7 @@ class _DenseLoop:
     the lanes the previous one changed."""
 
     def __init__(self, ops, adjs, tables, backend, mask0, bound: int):
-        self.ops, self.adjs, self.tables = ops, adjs, tables
+        self.ops, self.adjs, self.tables = ops, adjs, tables   # adjs: (u, v)
         self.backend, self.mask, self.bound = backend, mask0, bound
         self.query_rounds = mask0.to(torch.int32)
         self.rounds = 0
@@ -1110,7 +1167,7 @@ class _DenseLoop:
         scalar to read), or None once the bound is reached."""
         if self.rounds:
             self.query_rounds += self.mask
-        self.mask = _shard_round(self.ops, self.adjs, self.tables,
+        self.mask = _shard_round(self.ops, *self.adjs, self.tables,
                                  self.backend, self.mask)
         self.rounds += 1
         return self.mask.sum() if self.rounds < self.bound else None
@@ -1135,7 +1192,7 @@ class _FrontierLoop:
 
     def step(self) -> Optional[torch.Tensor]:
         self.query_rounds += self.rm.any(dim=1).to(torch.int32)
-        self.rm = _shard_frontier_round(self.ops, self.adjs, self.tables,
+        self.rm = _shard_frontier_round(self.ops, *self.adjs, self.tables,
                                         self.backend, self.rows, self.rm)
         self.rows_relaxed += self.n_active
         self.rounds += 1
@@ -1171,24 +1228,36 @@ def _at(x: Optional[torch.Tensor], dev: torch.device):
 class _Operands:
     """A dispatch's representation boundary: a shard's blocks encode when
     it runs (inside the reference's run branch), each distinct adjacency
-    once, and results decode back to float32 timestamps."""
+    tensor once (views of one tensor through it: a device's u and v
+    blocks share the whole slab's encoding), and results decode back to
+    float32 timestamps."""
 
     def __init__(self, backend: Backend, now, w_max):
         self.backend, self.now, self.w_max = backend, now, w_max
         self._adj: dict = {}
+
+    def _encode_adj(self, a: torch.Tensor) -> torch.Tensor:
+        base = a._base
+        if base is None or not base.is_contiguous() or base.storage_offset():
+            base = a
+        if id(base) not in self._adj:
+            self._adj[id(base)] = (base, self.backend.prepare_state(
+                None, base, _at(self.now, base.device),
+                _at(self.w_max, base.device))[1])
+        enc = self._adj[id(base)][1]
+        if base is a:
+            return enc
+        # the encoding is elementwise into a contiguous tensor of the
+        # base's shape, so the view's geometry carries over
+        return enc.as_strided(a.size(), a.stride(), a.storage_offset())
 
     def encode(self, sh: Shard):
         be = self.backend
         ops = [be.prepare_state(b, None, _at(self.now, b.device),
                                 _at(self.w_max, b.device))[0]
                for b in sh.blocks]
-        adjs = []
-        for a in sh.adjs:
-            if id(a) not in self._adj:
-                self._adj[id(a)] = be.prepare_state(
-                    None, a, _at(self.now, a.device), _at(self.w_max, a.device))[1]
-            adjs.append(self._adj[id(a)])
-        return ops, adjs
+        return ops, ([self._encode_adj(a) for a in sh.adj_u],
+                     [self._encode_adj(a) for a in sh.adj_v])
 
     def decode(self, ops) -> List[torch.Tensor]:
         return [self.backend.decode_state(d, _at(self.now, d.device),
@@ -1292,12 +1361,23 @@ def shards_frontier(shards: Sequence[Shard], src: torch.Tensor,
 # ``table`` the shard's BatchedTransitionTable (one, or one per peer).
 
 
+def peer_views(adj: torch.Tensor, m: int, n_model: int):
+    """Model peer m's (u-row, v-column) blocks of a whole (L, N, N)
+    adjacency, as views; with one peer both are the adjacency."""
+    if n_model == 1:
+        return adj, adj
+    cols = _peer_cols(m, adj.shape[1] // n_model)
+    return adj[:, cols], adj[:, :, cols]
+
+
 def _shard_of(blocks, adjs, table, query_mask) -> Shard:
     blocks = blocks if isinstance(blocks, list) else [blocks]
     adjs = adjs if isinstance(adjs, list) else [adjs] * len(blocks)
     tables = table if isinstance(table, list) else [table] * len(blocks)
+    views = [peer_views(a, m, len(blocks)) for m, a in enumerate(adjs)]
     mask = torch.as_tensor(query_mask).to(blocks[0].device, torch.bool)
-    return Shard(blocks, adjs, tables, mask, device_get(mask))
+    return Shard(blocks, [u for u, _ in views], [v for _, v in views], tables,
+                 mask, device_get(mask))
 
 
 def _like(out: List[torch.Tensor], blocks):
@@ -1311,8 +1391,8 @@ def shard_relax_round(blocks, adjs, table, query_mask,
     changed (Q_l,) bool. Operands in the backend's representation."""
     sh = _shard_of(blocks, adjs, table, query_mask)
     new = [b.clone() for b in sh.blocks]
-    changed = _shard_round(new, sh.adjs, sh.tables, resolve_backend(backend),
-                           sh.mask)
+    changed = _shard_round(new, sh.adj_u, sh.adj_v, sh.tables,
+                           resolve_backend(backend), sh.mask)
     return _like(new, blocks), changed
 
 

@@ -136,6 +136,13 @@ def pack_ell_dense(dense: torch.Tensor, ell_cap: int,
                 f"ell_cap={ell_cap}; grow the capacity before packing")
         idx[l, u, pos] = v.to(torch.int32)
         ts[l, u, pos] = dense[l, u, v]
+    return _with_empty_ring(idx, ts, spill_cap)
+
+
+def _with_empty_ring(idx: torch.Tensor, ts: torch.Tensor,
+                     spill_cap: int) -> EllAdjacency:
+    """Row slots and an empty spill ring of ``spill_cap`` entries."""
+    dev = idx.device
 
     def zeros(dtype):
         return torch.zeros((spill_cap,), dtype=dtype, device=dev)
@@ -151,18 +158,95 @@ def pack_ell_dense(dense: torch.Tensor, ell_cap: int,
 def ell_to_dense(ell: EllAdjacency, zero: float = NEG_INF) -> torch.Tensor:
     """Densify to the canonical ``(L, N, N)`` slab: the max over every
     stored copy (row slots and ring) of each edge."""
+    n = ell.n_slots
+    return ell_block_to_dense(ell, slice(0, n), slice(0, n), zero)
+
+
+def ell_block_to_dense(ell: EllAdjacency, rows: slice, cols: slice,
+                       zero: float = NEG_INF) -> torch.Tensor:
+    """The (L, R, C) block ``ell_to_dense(ell, zero)[:, rows, cols]`` (a
+    model peer's u-row or v-column view), densified from the row slots of
+    ``rows`` and the ring without the whole slab. Entries outside the
+    block scatter -inf at offset 0, a no-op under max."""
+    n_labels = ell.n_labels
+    r0, c0 = rows.start, cols.start
+    n_r, n_c = rows.stop - r0, cols.stop - c0
+    dev = ell.ts.device
+    out = torch.full((n_labels, n_r, n_c), zero, dtype=ell.ts.dtype,
+                     device=dev)
+    idx = ell.idx[:, rows].long()                              # (L, R, E)
+    ok = (idx >= c0) & (idx < cols.stop)
+    cells = torch.arange(n_labels * n_r, device=dev).view(n_labels, n_r, 1)
+    flat = torch.where(ok, cells * n_c + idx - c0, 0)
+    out.view(-1).scatter_reduce_(
+        0, flat.reshape(-1), torch.where(ok, ell.ts[:, rows], NEG_INF).reshape(-1),
+        "amax", include_self=True)
+    src, dst = ell.spill_src.long(), ell.spill_dst.long()
+    ok = (src >= r0) & (src < rows.stop) & (dst >= c0) & (dst < cols.stop)
+    ring = (ell.spill_lab.long() * n_r + src - r0) * n_c + dst - c0
+    out.view(-1).scatter_reduce_(0, torch.where(ok, ring, 0),
+                                 torch.where(ok, ell.spill_ts, NEG_INF),
+                                 "amax", include_self=True)
+    return out
+
+
+def ell_live_entries(ell: EllAdjacency):
+    """The canonical slab's live edges without the slab: ``(keys, ts)``,
+    the ascending flattened ``(l * N + u) * N + v`` keys of every edge with
+    a live copy (row slot or ring) and each one's max timestamp, the
+    entries of ``ell_to_dense(ell) > -inf`` in row-major order. Reads the
+    live count to the host (a re-pack path)."""
     n_labels, n_slots, e_cap = ell.idx.shape
-    dense = torch.full((n_labels, n_slots, n_slots), zero,
-                       dtype=ell.ts.dtype, device=ell.ts.device)
-    rows = torch.arange(n_labels * n_slots, device=ell.idx.device)
-    flat = (rows[:, None] * n_slots + ell.idx.reshape(-1, e_cap)).reshape(-1)
-    dense.view(-1).scatter_reduce_(0, flat, ell.ts.reshape(-1), "amax",
-                                   include_self=True)
-    ring = ((ell.spill_lab.long() * n_slots + ell.spill_src.long()) * n_slots
-            + ell.spill_dst.long())
-    dense.view(-1).scatter_reduce_(0, ring, ell.spill_ts, "amax",
-                                   include_self=True)
-    return dense
+    dev = ell.idx.device
+    rows = torch.arange(n_labels * n_slots, device=dev)
+    keys = torch.cat([
+        (rows[:, None] * n_slots + ell.idx.reshape(-1, e_cap).long()).reshape(-1),
+        (ell.spill_lab.long() * n_slots + ell.spill_src.long()) * n_slots
+        + ell.spill_dst.long()])
+    ts = torch.cat([ell.ts.reshape(-1), ell.spill_ts])
+    live = ts > NEG_INF
+    keys, ts = keys[live], ts[live]
+    uniq, inv = torch.unique(keys, sorted=True, return_inverse=True)
+    best = torch.full(uniq.shape, NEG_INF, dtype=ts.dtype, device=dev)
+    return uniq, best.scatter_reduce_(0, inv, ts, "amax", include_self=True)
+
+
+def ell_entries_degree(keys: torch.Tensor, n_labels: int,
+                       n_slots: int) -> int:
+    """Max out-degree over ``(label, u)`` rows of :func:`ell_live_entries`'
+    keys (a host read)."""
+    if not keys.numel():
+        return 0
+    return int(torch.bincount(keys // n_slots,
+                              minlength=n_labels * n_slots).max())
+
+
+def pack_ell_entries(keys: torch.Tensor, ts: torch.Tensor, n_labels: int,
+                     n_slots: int, ell_cap: int,
+                     spill_cap: int) -> EllAdjacency:
+    """:func:`pack_ell_dense` of the slab whose live entries are ``keys``
+    and ``ts`` (:func:`ell_live_entries`): the same slots in the same
+    order, the ring empty, from O(L*N*E + S) entries instead of the
+    (L, N, N) slab."""
+    dev = ts.device
+    idx = torch.zeros((n_labels * n_slots, ell_cap), dtype=torch.int32,
+                      device=dev)
+    out_ts = torch.full((n_labels * n_slots, ell_cap), NEG_INF,
+                        dtype=torch.float32, device=dev)
+    if keys.numel():
+        row = keys // n_slots
+        deg = torch.bincount(row, minlength=n_labels * n_slots)
+        pos = torch.arange(keys.shape[0], device=dev) - (torch.cumsum(deg, 0)
+                                                         - deg)[row]
+        top = int(pos.max())
+        if top >= ell_cap:
+            raise ValueError(
+                f"pack_ell: max out-degree {top + 1} exceeds "
+                f"ell_cap={ell_cap}; grow the capacity before packing")
+        idx[row, pos] = (keys % n_slots).to(torch.int32)
+        out_ts[row, pos] = ts
+    return _with_empty_ring(idx.view(n_labels, n_slots, ell_cap),
+                            out_ts.view(n_labels, n_slots, ell_cap), spill_cap)
 
 
 def _host_ints(x) -> list:

@@ -34,7 +34,7 @@ of the reference's.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -178,40 +178,46 @@ def _live_rows(sd: RowSparseDist) -> Tuple[torch.Tensor, torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 
+def rsd_rows_to_dense(idx: torch.Tensor, ts: torch.Tensor,
+                      ovf_rows: torch.Tensor, ovf_ts: torch.Tensor,
+                      row0: int = 0) -> torch.Tensor:
+    """Densify the rows ``[row0, row0 + M)`` of a row-sparse dist (flattened
+    ``q * N + x`` row ids) from their slot rows ``idx``/``ts`` (M, C) and
+    the overflow table, into an (M, N*K) view: slots and table rows
+    max-folded (free slots and the slots-or-table split are no-ops); table
+    rows outside the range, and free ones, land in a sink row cut off."""
+    m = idx.shape[0]
+    e = ovf_ts.shape[1]
+    flat = torch.full((m + 1, e), NEG_INF, dtype=ts.dtype, device=ts.device)
+    flat[:m].scatter_reduce_(1, idx.long(), ts, "amax", include_self=True)
+    row = ovf_rows.long() - row0
+    keep = (ovf_rows >= 0) & (row >= 0) & (row < m)
+    flat.index_reduce_(0, torch.where(keep, row, m), ovf_ts, "amax",
+                       include_self=True)
+    return flat[:m]
+
+
 def rsd_to_dense(sd: RowSparseDist) -> torch.Tensor:
-    """Densify to the canonical ``(Q, N, N, K)`` slab: slots and table rows
-    max-folded (free slots and the slots-or-table split are no-ops)."""
+    """Densify to the canonical ``(Q, N, N, K)`` slab."""
     q, n, c = sd.idx.shape
-    e = sd.ovf_ts.shape[1]
-    flat = torch.full((q * n, e), NEG_INF, dtype=sd.ts.dtype,
-                      device=sd.ts.device)
-    flat.scatter_reduce_(1, sd.idx.reshape(q * n, c).long(),
-                         sd.ts.reshape(q * n, c), "amax", include_self=True)
-    live, row = _live_rows(sd)
-    flat.index_reduce_(0, row, sd.ovf_ts.masked_fill(~live[:, None], NEG_INF),
-                       "amax", include_self=True)
-    return flat.view(q, n, n, e // n)
+    flat = rsd_rows_to_dense(sd.idx.reshape(q * n, c), sd.ts.reshape(q * n, c),
+                             sd.ovf_rows, sd.ovf_ts)
+    return flat.view(q, n, n, sd.k)
 
 
-def _from_dense(dense: torch.Tensor, dist_cap: int, ovf_cap: int,
-                lost: Optional[torch.Tensor] = None
-                ) -> Tuple[RowSparseDist, int]:
-    """:func:`rsd_from_dense` plus the number of blocking host reads it
-    made: one for the (Q, N) row counts, one per lane with fitting
-    entries (the lane's ``nonzero``)."""
-    q, n, _, k = dense.shape
-    e = n * k
-    dev = dense.device
-    flat = dense.reshape(q, n, e)
-    # lane by lane: the (N, E) finite mask and the entry coordinates of
-    # one lane at a time, never int64 ranks over the whole slab
-    counts = torch.stack([(flat[lane] > NEG_INF).sum(dim=1)
-                          for lane in range(q)])                  # (Q, N)
-    counts_h = device_get(counts)
-    reads = 1
+def _pack_slots(flat: torch.Tensor, counts: torch.Tensor, counts_h: np.ndarray,
+                dist_cap: int) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """The slot leaves of (q, N, E) dense rows with finite counts ``counts``
+    (and their host copy): rows that fit pack their entries by rank, lane
+    by lane (the (N, E) finite mask and the entry coordinates of one lane
+    at a time, never int64 ranks over the whole slab). Returns ``(idx, ts,
+    reads)``, one read per lane with fitting entries (its ``nonzero``)."""
+    q, n, _e = flat.shape
+    dev = flat.device
     fits = counts <= dist_cap
     idx = torch.zeros((q, n, dist_cap), dtype=torch.int32, device=dev)
-    ts = torch.full((q, n, dist_cap), NEG_INF, dtype=dense.dtype, device=dev)
+    ts = torch.full((q, n, dist_cap), NEG_INF, dtype=flat.dtype, device=dev)
+    reads = 0
     for lane in range(q):
         if not ((counts_h[lane] > 0) & (counts_h[lane] <= dist_cap)).any():
             continue
@@ -223,18 +229,65 @@ def _from_dense(dense: torch.Tensor, dist_cap: int, ovf_cap: int,
         rank = torch.arange(x.shape[0], device=dev) - start[x]
         idx[lane, x, rank] = col.to(torch.int32)
         ts[lane, x, rank] = flat[lane, x, col]
+    return idx, ts, reads
+
+
+def rsd_pack_rows(flats: Sequence[torch.Tensor], dist_cap: int, ovf_cap: int,
+                  lost: Optional[torch.Tensor], home: torch.device):
+    """The re-pack of a dense dist held as consecutive lane ranges, each a
+    (q_i, N, N*K) tensor on its own device (one range: the whole slab):
+    each range's slot leaves on its device, and ONE overflow table on
+    ``home`` whose rows are claimed in the flattened ``q * N + x`` order of
+    the whole slab, so the leaves do not depend on the split. Returns
+    ``(idx list, ts list, (ovf_rows, ovf_ts, ovf_ptr, lost), reads)``: one
+    read for every range's (q_i, N) row counts together, one per lane with
+    fitting entries."""
+    counts = [torch.stack([(f[lane] > NEG_INF).sum(dim=1)
+                           for lane in range(f.shape[0])]) for f in flats]
+    counts_h = device_get(torch.cat([c.to(home) for c in counts]))
+    reads = 1
+    n, e = flats[0].shape[1], flats[0].shape[2]
+    idx, ts = [], []
+    q0 = 0
+    for f, c in zip(flats, counts):
+        i, t, r = _pack_slots(f, c, counts_h[q0:q0 + f.shape[0]], dist_cap)
+        idx.append(i)
+        ts.append(t)
+        reads += r
+        q0 += f.shape[0]
     # overflowing rows claim table slots in flattened row order
     over = np.flatnonzero(counts_h.reshape(-1) > dist_cap)
-    kept = torch.as_tensor(over[:ovf_cap], dtype=torch.int64, device=dev)
-    ovf_rows = torch.full((ovf_cap,), -1, dtype=torch.int32, device=dev)
-    ovf_ts = torch.full((ovf_cap, e), NEG_INF, dtype=dense.dtype, device=dev)
-    ovf_rows[:kept.shape[0]] = kept.to(torch.int32)
-    ovf_ts[:kept.shape[0]] = flat.reshape(q * n, e).index_select(0, kept)
+    kept = over[:ovf_cap]
+    ovf_rows = torch.full((ovf_cap,), -1, dtype=torch.int32, device=home)
+    ovf_ts = torch.full((ovf_cap, e), NEG_INF, dtype=flats[0].dtype,
+                        device=home)
+    ovf_rows[:kept.size] = torch.as_tensor(kept, dtype=torch.int32).to(home)
+    row0 = pos = 0
+    for f in flats:
+        mine = kept[(kept >= row0) & (kept < row0 + f.shape[0] * n)]
+        if mine.size:
+            sel = torch.as_tensor(mine - row0, dtype=torch.int64).to(f.device)
+            ovf_ts[pos:pos + mine.size] = f.reshape(-1, e).index_select(
+                0, sel).to(home)
+            pos += mine.size
+        row0 += f.shape[0] * n
     dropped = torch.tensor(max(over.size - ovf_cap, 0), dtype=torch.int32,
-                           device=dev)
-    ptr = torch.tensor(min(over.size, ovf_cap), dtype=torch.int32, device=dev)
-    return (RowSparseDist(idx, ts, ovf_rows, ovf_ts, ptr,
-                          dropped if lost is None else lost + dropped), reads)
+                           device=home)
+    ptr = torch.tensor(min(over.size, ovf_cap), dtype=torch.int32, device=home)
+    return (idx, ts, (ovf_rows, ovf_ts, ptr,
+                      dropped if lost is None else lost.to(home) + dropped),
+            reads)
+
+
+def _from_dense(dense: torch.Tensor, dist_cap: int, ovf_cap: int,
+                lost: Optional[torch.Tensor] = None
+                ) -> Tuple[RowSparseDist, int]:
+    """:func:`rsd_from_dense` plus the number of blocking host reads it
+    made (see :func:`rsd_pack_rows`)."""
+    q, n, _, k = dense.shape
+    idx, ts, table, reads = rsd_pack_rows([dense.reshape(q, n, n * k)],
+                                          dist_cap, ovf_cap, lost, dense.device)
+    return RowSparseDist(idx[0], ts[0], *table), reads
 
 
 def rsd_from_dense(dense: torch.Tensor, dist_cap: int, ovf_cap: int,

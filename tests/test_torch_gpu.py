@@ -811,12 +811,16 @@ MESH_CONFIGS = {"dense": dict(),
 
 def _mesh_state_tensors(ex):
     """Every tensor the mesh holds between dispatches: its grids' blocks,
-    the adjacency (and ELL leaves), the row-sparse leaves and the clock."""
+    the adjacency's blocks at rest (or every ELL replica's leaves), each
+    lane shard's row-sparse leaves with the overflow table, and the clock."""
     a = ex._arrays
-    out = _executor_tensors(a.adj) + _executor_tensors(a.now)
+    out = _executor_tensors(a.now)
+    out += ([t for held in a.adj.pieces.values() for t in held.values()]
+            if hasattr(a.adj, "pieces") else
+            [t for rep in ex._ell_reps.values() for t in _executor_tensors(rep)])
     for part in (a.dist, a.emitted):
-        out += ([b for row in part.blocks for b in row]
-                if hasattr(part, "blocks") else _executor_tensors(part))
+        out += ([b for row in part.blocks for b in row] if hasattr(part, "blocks")
+                else [*part.idx, *part.ts, *_executor_tensors(part.table)])
     return out
 
 

@@ -246,7 +246,7 @@ def test_lockstep_reads_once_per_round():
     a = torch.from_numpy(adj)
     alone = [tsr.shard_closure(torch.from_numpy(b.copy()), a, TABLES[s], _mask(s),
                                "plain") for s, b in enumerate(blocks)]
-    shards = [tsr.Shard([torch.from_numpy(b.copy())], [a], [TABLES[s]],
+    shards = [tsr.Shard([torch.from_numpy(b.copy())], [a], [a], [TABLES[s]],
                         torch.from_numpy(_mask(s)), _mask(s))
               for s, b in enumerate(blocks)]
     out, reads = tsr.shards_closure(shards, "plain")
