@@ -206,6 +206,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    with the plain versions on the card (``torch.equal``); B1's and B3's
    counters move by exactly the launches the shares make. The records go
    to ``chiprun_out/dryrun_rpq/``.
+16. the host-sync census: phase 4's configuration (the dense default, B1;
+   no reference engines) and then phase 8's (frontier + ELL + row-sparse,
+   B5 and B6), each on the first 256 insert sgts of that phase's stream
+   (cut for time), under ``torch.cuda.set_sync_debug_mode("warn")`` with
+   every warning recorded and the mode reset after. Each sync is charged
+   to its innermost frame under ``src/repro_torch/`` (``device.py``'s
+   frames skipped, so a ``device_get`` counts at its caller). Asserts that
+   every site inside a function the port's analyzer reaches from its
+   dispatch roots (``repro_torch.analysis``, rule R1) is an R1 finding at
+   that line, that the dense run's syncs at the fixpoint loop's line
+   equal the growth of the executor's ``host_syncs``, that no kernel
+   wrapper syncs, and that B1 (dense) and B5 and B6 (sparse) ran. Prints
+   each site's file:line, function, reachability and syncs a dispatch,
+   and the total a dispatch of each run; the record goes to
+   ``chiprun_out/census/``. Syncs inside the CUDA C entries would not
+   show; ``csrc/*.cu`` makes none.
 
 The last three lines of standard output are the kernels JSON line, the
 ``nvidia-smi`` name/power-limit line, and the ``{"ok": true, ...}`` line.
@@ -213,11 +229,14 @@ The last three lines of standard output are the kernels JSON line, the
 from __future__ import annotations
 
 import argparse
+import collections
 import json
+import os
 import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -283,6 +302,8 @@ MESH_SPY_SGTS = 96        # phase 14 (c): sgts run again under the dispatch spy
 DRYRUN_MODES = ("baseline", "mxu", "ring", "batched", "batched-mxu_bucket",
                 "batched-frontier")   # phase 15, on the 16x16 grid
 DRYRUN_REPEATS = 3        # phase 15: timed shares after the warm-up
+CENSUS_INSERTS = 256      # phase 16: the first insert sgts of phases 4's and 8's streams
+SYNC_WARNING = "called a synchronizing CUDA operation"   # sync debug mode's text
 
 
 def fail(msg: str) -> None:
@@ -1071,6 +1092,9 @@ def main() -> None:
 
     # -- 15. the dry run: one device's share of a round on the production grid
     dry15 = dryrun_phase(torch, smi_line)
+
+    # -- 16. the host-sync census, held against the analyzer's R1 -------------
+    census_phase(torch, queries, smi_line, args.edges, args.ell_inserts)
 
     e5, b6p = b5_rows["frontier"], b6_rows["path"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
@@ -2787,6 +2811,206 @@ def dryrun_phase(torch, smi: str, device=None, cells=None, results_dir=None,
     print(f"[dryrun] {len(out['records'])} records in "
           f"{time.perf_counter() - t0:.3f} s; launches {got}; {smi}", flush=True)
     return out
+
+
+class SyncCensus:
+    """Phase 16's recorder: inside ``with census:`` (on the card, under
+    ``torch.cuda.set_sync_debug_mode("warn")``, reset on exit) every sync
+    warning is charged to its innermost stack frame under
+    ``src/repro_torch/``; frames of ``repro_torch/device.py`` are skipped,
+    so a ``device_get`` is charged to its caller's line. ``sites`` maps
+    (path from the repo root, line, function qualname) to syncs;
+    ``unattributed`` counts warnings with no such frame."""
+
+    def __init__(self, torch, on_card: bool):
+        self.torch, self.on_card = torch, on_card
+        self.pkg = str(ROOT / "src" / "repro_torch") + os.sep
+        self.skip = str(ROOT / "src" / "repro_torch" / "device.py")
+        self.sites = collections.Counter()
+        self.unattributed = 0
+
+    def _show(self, message, category, filename, lineno, file=None, line=None):
+        if SYNC_WARNING not in str(message):
+            return self._forward(message, category, filename, lineno, file, line)
+        frame = sys._getframe(1)
+        while frame is not None:
+            path = frame.f_code.co_filename
+            if path.startswith(self.pkg) and path != self.skip:
+                # comprehensions, lambdas and closures' <locals> fold into
+                # the analyzer's dotted qualname of the function
+                qual = ".".join(p for p in frame.f_code.co_qualname.split(".")
+                                if not p.startswith("<"))
+                self.sites[(os.path.relpath(path, ROOT), frame.f_lineno, qual)] += 1
+                return None
+            frame = frame.f_back
+        self.unattributed += 1
+        return None
+
+    def __enter__(self):
+        self._catch = warnings.catch_warnings()
+        self._catch.__enter__()
+        warnings.simplefilter("always")
+        self._forward = warnings.showwarning
+        warnings.showwarning = self._show
+        if self.on_card:
+            self._mode = self.torch.cuda.get_sync_debug_mode()
+            self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            if self.on_card:
+                self.torch.cuda.set_sync_debug_mode(self._mode)
+        finally:
+            self._catch.__exit__(*exc)
+        return False
+
+
+def census_phase(torch, queries, smi: str, edges: int, ell_inserts: int,
+                 device=None, dense_slots: int = 2048, sparse_slots: int = ELL_SLOTS,
+                 n_inserts: int = CENSUS_INSERTS, out_dir=None):
+    """Phase 16: the host-sync census. Phase 4's configuration (the dense
+    default, B1) and phase 8's (frontier + ELL + row-sparse, B5 and B6)
+    each take the first ``n_inserts`` insert sgts of that phase's stream
+    (cut for time) with every sync the card reports recorded
+    (:class:`SyncCensus`), then held against ``repro_torch.analysis``: every
+    site inside a function that R1's dispatch roots reach is an R1 finding
+    at that line; in the dense run the syncs at the fixpoint loop's line
+    equal the growth of the executor's ``host_syncs``; no kernel wrapper
+    syncs. Prints each site's file:line, function, whether R1 reaches it
+    and its syncs a dispatch, and writes the census to
+    ``chiprun_out/census/``. ``device`` and the sizes let it rehearse on the
+    CPU, where nothing syncs and only the bookkeeping runs."""
+    from repro_torch.analysis.analyzer import load_project, run_project
+    from repro_torch.analysis.rules.r1_dispatch_syncs import port_roots
+    from repro_torch.kernels.ell import ell as b5
+    from repro_torch.kernels.maxmin import maxmin as b1
+    from repro_torch.kernels.rowsparse import rowsparse as b6
+    from repro_torch.streaming.generators import so_like, with_deletions
+    from repro_torch.streaming.service import PersistentQueryService
+    from repro_torch.streaming.stream import Stream
+
+    on_card = device is None
+    t_phase = time.perf_counter()
+    project = load_project([str(ROOT / "src" / "repro_torch")], root=str(ROOT))
+    graph = project.callgraph(port_roots())
+    r1 = run_project(project, ["R1"])
+    r1_lines = {(f.path, f.line): f for f in r1}
+    loop = [f for f in r1 if "`_masked_closure_loop`" in f.message]
+    if len(loop) != 1:
+        fail(f"expected one R1 finding in the fixpoint loop, got {loop}")
+    loop_site = (loop[0].path, loop[0].line)
+    window, slide = 20.0, 2.0
+
+    def first_inserts(stream):
+        tuples = list(stream)
+        cut = [i for i, s in enumerate(tuples) if s.op == "+"][n_inserts]
+        return tuples[:cut]
+
+    runs = []
+    for tag, layout, n_slots, stream in (
+            ("dense", {}, dense_slots, with_deletions(so_like(
+                n_vertices=dense_slots, n_edges=edges + PROFILE_SGTS, seed=42),
+                ratio=0.02, seed=1)),
+            ("sparse", {**ELL_LAYOUT, **RS_DIST}, sparse_slots,
+             with_deletions(so_like(n_vertices=sparse_slots,
+                                    n_edges=ell_inserts + PROFILE_SGTS, seed=7,
+                                    rate=50.0), ratio=0.02, seed=5))):
+        tuples = first_inserts(stream)
+        svc = PersistentQueryService(window=window, slide=slide, device=device,
+                                     **layout)
+        for name, expr in queries.items():
+            svc.register(name, expr, engine="dense", n_slots=n_slots, batch_size=1)
+        if tag == "dense":
+            for name in ("Q2", "Q3"):
+                svc.register(f"{name}_simple", queries[name], engine="dense",
+                             path_semantics="simple", n_slots=n_slots, batch_size=1)
+        group = svc.queries["Q1"]
+        ex = group.executor
+        census = SyncCensus(torch, on_card)
+        steps0, syncs0, rounds0 = ex.steps, ex.host_syncs, ex.rounds_total
+        contractions0 = ex.ell_contractions_total
+        if on_card:
+            torch.cuda.synchronize()
+        b1.maxmin_matmul_fused.launches = 0
+        b5.ell_contract_rows.launches = 0
+        b6.rowsparse_gather.launches = 0
+        t0 = time.perf_counter()
+        with census:
+            svc.ingest(Stream(tuples))
+            if on_card:
+                torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"B1": b1.maxmin_matmul_fused.launches,
+                    "B5": b5.ell_contract_rows.launches,
+                    "B6": b6.rowsparse_gather.launches}
+        steps = ex.steps - steps0
+        grew = ex.host_syncs - syncs0
+        rounds = ex.rounds_total - rounds0
+        contractions = ex.ell_contractions_total - contractions0
+        if census.unattributed:
+            fail(f"census {tag}: {census.unattributed} syncs with no frame under "
+                 "src/repro_torch/")
+        if on_card and tag == "dense" and not 0 < launches["B1"] == rounds:
+            fail(f"census {tag}: B1 launches {launches['B1']} != rounds {rounds}")
+        if on_card and tag == "sparse" and not (
+                0 < launches["B5"] == contractions and launches["B6"] > 0):
+            fail(f"census {tag}: B5 launches {launches['B5']} (ELL contractions "
+                 f"{contractions}), B6 {launches['B6']}")
+        sites = []
+        for (path, line, qual), n in census.sites.most_common():
+            dotted = project.by_path[path].dotted if path in project.by_path else ""
+            finding = r1_lines.get((path, line))
+            sites.append({"site": f"{path}:{line}", "function": qual,
+                          "reachable": (dotted, qual) in graph.reachable,
+                          "r1": (None if finding is None else
+                                 "suppressed" if finding.suppressed else "live"),
+                          "syncs": n, "per_dispatch": n / max(steps, 1)})
+        missed = [s for s in sites if s["reachable"] and s["r1"] is None]
+        if missed:
+            fail(f"census {tag}: syncs inside dispatch-reachable functions that "
+                 f"R1 does not flag: {[(s['site'], s['function']) for s in missed]}")
+        kernels = [s for s in sites if s["site"].startswith("src/repro_torch/kernels/")]
+        if kernels:
+            fail(f"census {tag}: a kernel wrapper syncs: {kernels}")
+        at_loop = sum(n for (path, line, _q), n in census.sites.items()
+                      if (path, line) == loop_site)
+        total = sum(census.sites.values())
+        if on_card and not (total and (at_loop or tag != "dense")):
+            fail(f"census {tag}: {total} syncs recorded, {at_loop} at the "
+                 "fixpoint loop: the census saw nothing")
+        if tag == "dense" and total and at_loop != grew:
+            fail(f"census {tag}: {at_loop} syncs at the fixpoint loop "
+                 f"{loop_site[0]}:{loop_site[1]} != host_syncs growth {grew}")
+        print(f"[census] {tag}: {len(tuples)} sgts ({n_inserts} inserts), "
+              f"{steps} dispatches, {rounds} closure rounds in {wall:.3f} s; "
+              f"{total} syncs = {total / max(steps, 1):.3f} a dispatch at "
+              f"{len(sites)} sites; executor host_syncs +{grew} "
+              f"({grew / max(steps, 1):.3f} a dispatch), {at_loop} at the "
+              f"fixpoint loop {loop_site[0]}:{loop_site[1]}; launches "
+              f"{launches}; {smi}", flush=True)
+        for s in sites:
+            print(f"[census] {tag} {s['site']} {s['function']}: reachable "
+                  f"{'yes' if s['reachable'] else 'no'}, R1 {s['r1'] or '-'}, "
+                  f"{s['syncs']} syncs = {s['per_dispatch']:.3f} a dispatch",
+                  flush=True)
+        runs.append({"tag": tag, "n_slots": n_slots, "sgts": len(tuples),
+                     "inserts": n_inserts, "dispatches": steps, "rounds": rounds,
+                     "wall_s": wall, "syncs": total,
+                     "per_dispatch": total / max(steps, 1),
+                     "host_syncs_growth": grew, "at_fixpoint_loop": at_loop,
+                     "launches": launches, "sites": sites})
+        del svc, group, ex
+        if on_card:
+            torch.cuda.empty_cache()
+    out_dir = Path(out_dir) if out_dir is not None else ROOT / "chiprun_out" / "census"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "phase16.json", "w") as fh:
+        json.dump({"device": smi, "runs": runs}, fh, indent=1)
+    print(f"[census] {time.perf_counter() - t_phase:.3f} s; R1 findings "
+          f"{len(r1)} ({sum(f.suppressed for f in r1)} suppressed); every "
+          f"reachable site is an R1 finding; record in {out_dir}", flush=True)
+    return runs
 
 
 if __name__ == "__main__":

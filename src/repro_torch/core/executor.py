@@ -160,8 +160,9 @@ def _f32(x, device: torch.device) -> torch.Tensor:
     """A host scalar as a float32 device scalar. The clock arithmetic
     (``now``, ``ts_floor``, ``now - windows``, the expiry threshold) stays
     in float32 tensors, as in the JAX version, so validity at the window
-    boundary rounds exactly as the reference does."""
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    boundary rounds exactly as the reference does. A fill, not a copy from
+    the host: a blocking copy would wait for the stream to drain."""
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -203,8 +204,11 @@ def drop_batch(arrays: BatchedEngineArrays, src, dst, lab, mask,
         h = host or HostBatch(src, dst, lab, mask)
         return ell_delete(adj, h.src, h.dst, h.lab, h.mask)
     _, n, _ = adj.shape
-    flat = ((lab * n + src) * n + dst)[mask]
-    adj.view(-1)[flat] = NEG_INF
+    flat = (lab * n + src) * n + dst
+    # masked rows fold +inf, which min leaves as it was: no boolean index,
+    # whose nonzero would read the row count on the host
+    clear = torch.where(mask, NEG_INF, float("inf"))
+    adj.view(-1).scatter_reduce_(0, flat, clear, "amin", include_self=True)
     return adj
 
 

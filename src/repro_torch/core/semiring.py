@@ -426,7 +426,7 @@ def _masked_closure_loop(
     rounds, syncs = 1, 0
     while True:
         syncs += 1
-        if not bool(changed.any()) or rounds >= bound:
+        if not bool(changed.any()) or rounds >= bound:  # repro: noqa[R1] the fixpoint loop's one read a round (the reference's lax.while_loop), counted in host_syncs
             break
         mask = changed
         changed = _relax_in_place(dist_op, adj_op, btt, backend, mask)
@@ -674,7 +674,7 @@ def _frontier_loop(state, step, rowmask0, n_active: int, bound: int):
         rows_relaxed += n_active
         rounds += 1
         if rounds < bound:
-            n_active = int(device_get(rm.sum()))
+            n_active = int(device_get(rm.sum()))  # repro: noqa[R1] the frontier loop's changed-row count, one read a round (lax.while_loop), counted in host_syncs
             syncs += 1
     return state, rounds, qrounds, rows_relaxed, syncs
 
@@ -729,7 +729,7 @@ def _plan(dirty: torch.Tensor, f_cap: int, mask0: torch.Tensor):
     Returns ``(rows, rowmask0, counts (host), live_lanes, overflow)``."""
     q = dirty.shape[0]
     rows, rowmask0, cnt = pack_frontier(dirty, f_cap)
-    host = device_get(torch.cat([cnt.to(torch.int64), mask0.sum().reshape(1)]))
+    host = device_get(torch.cat([cnt.to(torch.int64), mask0.sum().reshape(1)]))  # repro: noqa[R1] the fallback decision (the reference's lax.cond), one read a dispatch, counted in host_syncs
     cnt_h = host[:q]
     return rows, rowmask0, cnt_h, int(host[q]), bool((cnt_h > f_cap).any())
 
@@ -1214,7 +1214,7 @@ def run_lockstep(loops) -> int:
         if not pending:
             break
         dev = pending[0][1].device
-        left = device_get(torch.stack([c.to(dev) for _lp, c in pending]))
+        left = device_get(torch.stack([c.to(dev) for _lp, c in pending]))  # repro: noqa[R1] one read a round for every shard's loop (lax.while_loop), counted in host_syncs
         reads += 1
         active = [lp for (lp, _c), v in zip(pending, left.tolist())
                   if lp.settle(int(v))]
@@ -1313,7 +1313,7 @@ def shards_frontier(shards: Sequence[Shard], src: torch.Tensor,
         dirty = _shard_dirty_rows(sh.blocks, src, smask, sh.mask)
         plans.append((dirty, *pack_frontier(dirty, f_cap)))
     home = shards[0].blocks[0].device
-    cnt_h = device_get(torch.cat([p[3].to(home) for p in plans]))
+    cnt_h = device_get(torch.cat([p[3].to(home) for p in plans]))  # repro: noqa[R1] every shard's fallback decision (lax.cond), one read a dispatch, counted in host_syncs
     syncs = 1
     operands = _Operands(backend, now, w_max)
     loops, stats = [], []

@@ -138,12 +138,14 @@ def _copy_rows_drop(dst: torch.Tensor, index: torch.Tensor, src: torch.Tensor,
     ``.at[].set(mode="drop")`` drops out-of-range ones. No host read: a
     dropped row repeats the first kept write (or rewrites ``dst[0]`` when
     none is kept), so every duplicate index writes equal values and the
-    result does not depend on the order of the writes."""
-    first = keep.to(torch.uint8).argmax()
+    result does not depend on the order of the writes. The first kept row
+    is gathered through a (1,) index: indexing with the 0-dim argmax
+    itself would read it on the host."""
+    first = keep.to(torch.uint8).argmax().reshape(1)
     any_kept = keep.any()
     index = index.long()
-    fill_index = torch.where(any_kept, index[first], 0)
-    fill_row = torch.where(any_kept, src[first], dst[0])
+    fill_index = torch.where(any_kept, index.index_select(0, first), 0)
+    fill_row = torch.where(any_kept, src.index_select(0, first), dst[:1])
     keep_b = keep.view(-1, *([1] * (src.dim() - 1)))
     dst.index_copy_(0, torch.where(keep, index, fill_index),
                     torch.where(keep_b, src, fill_row))
@@ -221,7 +223,7 @@ def _pack_slots(flat: torch.Tensor, counts: torch.Tensor, counts_h: np.ndarray,
     for lane in range(q):
         if not ((counts_h[lane] > 0) & (counts_h[lane] <= dist_cap)).any():
             continue
-        x, col = ((flat[lane] > NEG_INF) & fits[lane][:, None]).nonzero(
+        x, col = ((flat[lane] > NEG_INF) & fits[lane][:, None]).nonzero(  # repro: noqa[R1] the re-pack's one read a lane (the reference packs inside jit), counted in host_syncs
             as_tuple=True)                                        # row-major
         reads += 1
         cnt = torch.where(fits[lane], counts[lane], 0)
@@ -244,7 +246,7 @@ def rsd_pack_rows(flats: Sequence[torch.Tensor], dist_cap: int, ovf_cap: int,
     fitting entries."""
     counts = [torch.stack([(f[lane] > NEG_INF).sum(dim=1)
                            for lane in range(f.shape[0])]) for f in flats]
-    counts_h = device_get(torch.cat([c.to(home) for c in counts]))
+    counts_h = device_get(torch.cat([c.to(home) for c in counts]))  # repro: noqa[R1] the re-pack's row counts, one read (the reference packs inside jit), counted in host_syncs
     reads = 1
     n, e = flats[0].shape[1], flats[0].shape[2]
     idx, ts = [], []
@@ -261,19 +263,22 @@ def rsd_pack_rows(flats: Sequence[torch.Tensor], dist_cap: int, ovf_cap: int,
     ovf_rows = torch.full((ovf_cap,), -1, dtype=torch.int32, device=home)
     ovf_ts = torch.full((ovf_cap, e), NEG_INF, dtype=flats[0].dtype,
                         device=home)
-    ovf_rows[:kept.size] = torch.as_tensor(kept, dtype=torch.int32).to(home)
+    ovf_rows[:kept.size] = torch.as_tensor(kept, dtype=torch.int32).to(
+        home, non_blocking=True)
     row0 = pos = 0
     for f in flats:
         mine = kept[(kept >= row0) & (kept < row0 + f.shape[0] * n)]
         if mine.size:
-            sel = torch.as_tensor(mine - row0, dtype=torch.int64).to(f.device)
+            sel = torch.as_tensor(mine - row0, dtype=torch.int64).to(
+                f.device, non_blocking=True)
             ovf_ts[pos:pos + mine.size] = f.reshape(-1, e).index_select(
                 0, sel).to(home)
             pos += mine.size
         row0 += f.shape[0] * n
-    dropped = torch.tensor(max(over.size - ovf_cap, 0), dtype=torch.int32,
-                           device=home)
-    ptr = torch.tensor(min(over.size, ovf_cap), dtype=torch.int32, device=home)
+    # fills, not copies from the host (which would wait for the stream)
+    dropped = torch.full((), max(over.size - ovf_cap, 0), dtype=torch.int32,
+                         device=home)
+    ptr = torch.full((), min(over.size, ovf_cap), dtype=torch.int32, device=home)
     return (idx, ts, (ovf_rows, ovf_ts, ptr,
                       dropped if lost is None else lost.to(home) + dropped),
             reads)
