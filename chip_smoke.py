@@ -222,6 +222,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and the total a dispatch of each run; the record goes to
    ``chiprun_out/census/``. Syncs inside the CUDA C entries would not
    show; ``csrc/*.cu`` makes none.
+17. the LM serving path (``repro_torch.models``: plain PyTorch, no kernel
+   of its own, as the JAX package's is plain ``jnp``). (a) The
+   ``reduced()`` variant of each of the ten configs in float32, weights
+   from a seeded CPU generator copied to the card: forward, loss, a
+   prefill of 18 tokens (``max_len=24``) and 6 teacher-forced decode
+   steps on the card and on the CPU, every logit within 1e-4 x (1 +
+   |CPU's|), the MoE layers' chosen experts equal. (b) smollm-360m and
+   mamba2-370m at full width in float32: the card's forward on (1, 64)
+   tokens against the CPU's, and on the card a prefill of 48 tokens + 16
+   teacher-forced decode steps against its own forward, within 1e-3 x
+   (1 + |ref|). TF32 must be off. (c) bfloat16 serving at full width
+   (the configs' own ``param_dtype``, the port's seeded init):
+   smollm-360m and mamba2-370m at batch 8, qwen2.5-14b at batch 4, prompt
+   2048 and 64 decode steps; dbrx-132b with its depth cut to 2 layers,
+   batch 4, prompt 2048, 16 decode steps (capacity factor 1.25: tokens
+   drop; kept per expert == min(routed, capacity), the kept share
+   printed). Each prints prefill tokens/s beside its bound (the run's
+   matmul and attention FLOPs over 989 TFLOP/s), decode step p50/p99 and
+   tokens/s beside its bound (the bytes of weights and live KV or SSM
+   state a step reads over 3.35 TB/s), and peak device memory; asserts
+   finite logits and, but for dbrx (whose capacity differs between a
+   decode call and the full forward by design), decode within 0.5 of the
+   full forward (absolute; logits reach |6|). (d) One prefill and 8 decode
+   steps of the mamba2, qwen2.5 and dbrx runs under phase 16's sync
+   census: no sync charged to ``src/repro_torch/models/``. (e) The top
+   device kernels of one decode step and one prefill of mamba2-370m and
+   qwen2.5-14b under ``torch.profiler``. Each model is freed before the next; the record
+   goes to ``chiprun_out/lm/``.
 
 The last three lines of standard output are the kernels JSON line, the
 ``nvidia-smi`` name/power-limit line, and the ``{"ok": true, ...}`` line.
@@ -304,6 +332,23 @@ DRYRUN_MODES = ("baseline", "mxu", "ring", "batched", "batched-mxu_bucket",
 DRYRUN_REPEATS = 3        # phase 15: timed shares after the warm-up
 CENSUS_INSERTS = 256      # phase 16: the first insert sgts of phases 4's and 8's streams
 SYNC_WARNING = "called a synchronizing CUDA operation"   # sync debug mode's text
+# phase 17, the LM serving path
+LM_REDUCED = dict(prompt=18, max_len=24, decode=6)    # (a) every reduced config
+LM_F32_ARCHS = ("smollm-360m", "mamba2-370m")           # (b) full width, float32
+LM_F32 = dict(tokens=64, prompt=48, decode=16)
+# (c) full width, bfloat16: (arch, batch, prompt, decode steps, layers or None)
+LM_SERVE_RUNS = (("smollm-360m", 8, 2048, 64, None), ("mamba2-370m", 8, 2048, 64, None),
+                 ("qwen2.5-14b", 4, 2048, 64, None), ("dbrx-132b", 4, 2048, 16, 2))
+LM_CENSUS_ARCHS = ("mamba2-370m", "qwen2.5-14b", "dbrx-132b")   # (d)
+LM_CENSUS_DECODE = 8
+LM_TRACE_ARCHS = ("mamba2-370m", "qwen2.5-14b")                   # (e)
+LM_TOL_F32 = 1e-4         # (a): card vs CPU, |a - b| <= tol * (1 + |b|)
+LM_TOL_F32_FULL = 1e-3    # (b): card vs CPU, and decode vs the full forward
+# (c): decode vs the full forward in bfloat16, absolute. The two paths
+# round differently through 24-48 layers (measured 0.099-0.211 at logits of
+# max |6|); a misplaced position or cache row moves logits by O(|logit|)
+LM_TOL_BF16 = 0.5
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bfloat16 (published)
 
 
 def fail(msg: str) -> None:
@@ -405,7 +450,7 @@ def b5_rows_operands(torch, gen, j: int, m: int, u: int, e: int, levels: bool = 
     return d, idx, ts, labs, (src, dst, lab, sts)
 
 
-def trace_window(torch, run, n_sgts: int, tag: str, top: int = 6) -> int:
+def trace_window(torch, run, n_sgts: int, tag: str, top: int = 6, unit: str = "sgts") -> int:
     """Run ``run()`` under ``torch.profiler`` (device activity only:
     recording every CPU-side op of the host loop tripled the window's wall
     time) and print the top device kernels by self device time, with the
@@ -430,7 +475,7 @@ def trace_window(torch, run, n_sgts: int, tag: str, top: int = 6) -> int:
     total = sum(by_name.values()) / 1e3
     n_ops = sum(ev.count for ev in prof.key_averages()
                 if ev.device_type == DeviceType.CUDA)
-    print(f"[{tag}] top device kernels over {n_sgts} traced sgts"
+    print(f"[{tag}] top device kernels over {n_sgts} traced {unit}"
           f"{'' if by_name else ': the profiler recorded no device time'}; "
           f"device time {total:.3f} ms in {wall * 1e3:.3f} ms traced wall",
           flush=True)
@@ -1095,6 +1140,9 @@ def main() -> None:
 
     # -- 16. the host-sync census, held against the analyzer's R1 -------------
     census_phase(torch, queries, smi_line, args.edges, args.ell_inserts)
+
+    # -- 17. the LM serving path: prefill and decode at full width ------------
+    lm_phase(torch, smi_line)
 
     e5, b6p = b5_rows["frontier"], b6_rows["path"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
@@ -3011,6 +3059,414 @@ def census_phase(torch, queries, smi: str, edges: int, ell_inserts: int,
           f"{len(r1)} ({sum(f.suppressed for f in r1)} suppressed); every "
           f"reachable site is an R1 finding; record in {out_dir}", flush=True)
     return runs
+
+
+# -- phase 17: the LM serving path ----------------------------------------------
+
+
+def lm_max_err(a, b, rel: float):
+    """(max |a - b|, whether every |a - b| <= rel * (1 + |b|)), on the CPU."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    diff = (a - b).abs()
+    return float(diff.max()), bool((diff <= rel * (1.0 + b.abs())).all())
+
+
+class MoETap:
+    """Forward hooks on every MoE module of a model: each call's input
+    (no work on the device), so its routing can be recomputed after a
+    timed run (:func:`repro_torch.models.moe.route`)."""
+
+    def __init__(self, model):
+        from repro_torch.models.moe import MoE
+
+        self.calls = []
+        self.handles = [m.register_forward_hook(self._hook) for m in model.modules()
+                        if isinstance(m, MoE)]
+
+    def _hook(self, module, args, output):
+        self.calls.append((module, args[0]))
+
+    def routings(self, cfg):
+        """(module, Routing) per recorded call, as the layer routed it."""
+        from repro_torch.models.moe import route
+
+        out = []
+        for module, x in self.calls:
+            b, s, d = x.shape
+            g = cfg.moe_groups
+            out.append((module, route(module, x.reshape(g, b * s // g, d) if g > 1
+                                      else x.reshape(b * s, d),
+                                      cfg.experts_per_token, cfg.capacity_factor)))
+        return out
+
+    def close(self):
+        for h in self.handles:
+            h.remove()
+
+
+def lm_prefill_flops(cfg, b: int, s: int, kept_pairs=None) -> float:
+    """The matmul and attention FLOPs one prefill of ``b`` prompts of ``s``
+    tokens needs: the projections, causal attention (each query against
+    its own prefix: QK and PV), the SSD recurrence (a state update and a
+    read-out per token, 4·h·n·p), the MLPs, the routed experts' FFNs on the
+    (token, slot) pairs kept (``kept_pairs[i]`` for the i-th MoE layer)
+    plus the router, and the LM head on the last position."""
+    T, d = b * s, cfg.d_model
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    flops, moe_i = 0.0, 0
+    for i in range(cfg.n_layers):
+        if cfg.layer_kind(i) == "attn":
+            flops += 2 * T * d * (H + 2 * KV) * hd + 2 * T * H * hd * d
+            flops += 2 * 2 * b * H * hd * s * (s + 1) / 2
+        else:
+            di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+            flops += 2 * T * d * (2 * di + 2 * n + h) + 2 * T * di * d
+            flops += 4 * T * h * n * p
+        if cfg.mlp_kind(i) == "moe":
+            flops += 2 * T * d * cfg.n_experts + 2 * 3 * d * cfg.d_ff * kept_pairs[moe_i]
+            moe_i += 1
+        elif cfg.d_ff:
+            flops += 2 * T * 3 * d * cfg.d_ff
+    return flops + 2 * b * d * cfg.vocab_size
+
+
+def lm_decode_bytes(model, batch: int, cache_len: float, experts_read=None) -> float:
+    """The bytes one decode step reads: every weight but the embedding
+    table (of which ``batch`` rows), only the routed experts of a MoE layer
+    (``experts_read[i]`` of the i-th), the live KV (``cache_len`` + 1
+    positions) or the SSM and conv states."""
+    cfg, item = model.cfg, model.dtype.itemsize
+    total, moe_i = batch * cfg.d_model * item, 0
+    for name, p in model.named_parameters():
+        if name.startswith("embed."):
+            continue
+        if ".moe.w_" in name:
+            total += p.numel() * p.element_size() * experts_read[moe_i // 3] / cfg.n_experts
+            moe_i += 1
+            continue
+        total += p.numel() * p.element_size()
+    for i in range(cfg.n_layers):
+        if cfg.layer_kind(i) == "attn":
+            total += 2 * batch * (cache_len + 1) * model.KV * cfg.head_dim * item
+        else:
+            sc = model.ssd_cfg
+            total += batch * sc.n_heads * sc.d_state * sc.head_dim * 4
+            total += batch * (sc.d_conv - 1) * (sc.d_inner + 2 * sc.d_state) * item
+    return total
+
+
+def lm_tokens(torch, cfg, b: int, s: int, seed: int, device):
+    """``(b, s)`` token ids and the stub frontends' prefix embeddings, from
+    a seeded generator on ``device`` (prefix positions count in ``s``)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    P = cfg.prefix_len if cfg.frontend != "none" else 0
+    tokens = torch.randint(0, cfg.vocab_size, (b, s - P), generator=gen, device=device)
+    prefix = (torch.randn((b, P, cfg.d_model), generator=gen, device=device)
+              if P else None)
+    return tokens, prefix, P
+
+
+def lm_teacher_forced(model, tokens, prefix, P: int, prompt: int, n_decode: int,
+                      max_len: int, sync=None, times=None):
+    """Prefill ``prompt`` positions (the prefix included), then
+    ``n_decode`` teacher-forced decode steps. Returns the prefill's logits
+    and each step's, each (b, V); with ``times`` a list, the host seconds
+    of the prefill and of each step (``sync`` after each) are appended."""
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(tokens[:, :prompt - P], prefix, max_len=max_len)
+    if sync:
+        sync()
+    if times is not None:
+        times.append(time.perf_counter() - t0)
+    out = [logits[:, 0]]
+    for i in range(n_decode):
+        t0 = time.perf_counter()
+        logits, caches = model.decode_step(tokens[:, prompt + i - P][:, None], caches)
+        if sync:
+            sync()
+        if times is not None:
+            times.append(time.perf_counter() - t0)
+        out.append(logits[:, 0])
+    return out
+
+
+def lm_phase(torch, smi: str, device=None, reduced_full: bool = False, out_dir=None):
+    """Phase 17: the LM serving path (``repro_torch.models``), prefill and
+    decode. (a) every reduced config on the card against the CPU (float32,
+    weights from a seeded CPU generator copied over): forward, loss,
+    prefill and teacher-forced decode logits within ``LM_TOL_F32``, MoE
+    experts equal; (b) smollm-360m and mamba2-370m at full width in float32:
+    the card's forward against the CPU's, and prefill + decode against the
+    card's own forward, within ``LM_TOL_F32_FULL``; (c) the bfloat16 serving
+    runs of ``LM_SERVE_RUNS``: prefill tokens/s, decode step p50/p99 and
+    tokens/s, peak memory, each beside its bound, finite logits, decode
+    within ``LM_TOL_BF16`` of the full forward (not dbrx: its capacity
+    differs between a decode call and the full forward by design), and for
+    dbrx the kept share with kept == min(routed, capacity) per expert;
+    (d) one prefill and ``LM_CENSUS_DECODE`` decode steps of the
+    ``LM_CENSUS_ARCHS`` runs under the sync census: no sync charged to
+    ``src/repro_torch/models/``; (e) the top device kernels of one prefill
+    and one decode step of the ``LM_TRACE_ARCHS`` runs. ``device="cpu"`` with
+    ``reduced_full=True`` rehearses on the CPU: the full-width runs become
+    the reduced configs at small sizes (no timing means anything there)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCH_NAMES, get_config
+    from repro_torch.models.transformer import Model
+
+    on_card = device is None
+    dev = torch.device("cuda" if on_card else device)
+    t_phase = time.perf_counter()
+    if on_card and (torch.backends.cuda.matmul.allow_tf32
+                    or torch.get_float32_matmul_precision() != "highest"):
+        fail("float32 matmuls may use TF32: the float32 checks need IEEE float32")
+    held = 0
+    if on_card:
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+    record = {"device": smi, "held_on_entry_bytes": held, "reduced": [], "float32": [],
+              "serve": []}
+
+    # -- (a) every reduced config, card against CPU --------------------------
+    t0 = time.perf_counter()
+    worst = 0.0
+    for seed, arch in enumerate(ARCH_NAMES):
+        cfg = get_config(arch).reduced()
+        cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(seed))
+        card = Model(cfg, device=dev)
+        card.load_state_dict(cpu.state_dict())
+        tokens, prefix, P = lm_tokens(torch, cfg, 2, LM_REDUCED["max_len"], seed, "cpu")
+        results, routes = [], []
+        for m, d in ((cpu, torch.device("cpu")), (card, dev)):
+            tap = MoETap(m)
+            tk, pe = tokens.to(d), None if prefix is None else prefix.to(d)
+            with torch.no_grad():
+                logits, aux = m.forward(tk, pe)
+                loss = m.loss({"tokens": tk, **({} if pe is None else {"prefix_embeds": pe})})
+            steps = lm_teacher_forced(m, tk, pe, P, LM_REDUCED["prompt"],
+                                      LM_REDUCED["decode"], LM_REDUCED["max_len"])
+            results.append([logits, aux, loss] + steps)
+            routes.append([r.expert_idx.cpu() for _m, r in tap.routings(cfg)])
+            tap.close()
+        err = 0.0
+        for what, (a, b) in zip(["forward", "aux", "loss", "prefill"] +
+                                [f"decode {i}" for i in range(LM_REDUCED["decode"])],
+                                zip(results[1], results[0])):
+            e, ok = lm_max_err(a, b, LM_TOL_F32)
+            err = max(err, e)
+            if not ok:
+                fail(f"lm (a) {arch}: {what} on {dev} differs from the CPU: max |err| {e}")
+        if len(routes[0]) != len(routes[1]) or not all(
+                torch.equal(a, b) for a, b in zip(routes[0], routes[1])):
+            fail(f"lm (a) {arch}: the MoE experts on {dev} differ from the CPU's")
+        worst = max(worst, err)
+        record["reduced"].append({"arch": cfg.name, "max_abs_err": err,
+                                  "moe_calls": len(routes[0])})
+        del cpu, card
+    print(f"[lm] (a) {len(ARCH_NAMES)} reduced configs, float32, {dev} against the CPU: "
+          f"forward, loss, prefill of {LM_REDUCED['prompt']}, {LM_REDUCED['decode']} "
+          f"teacher-forced decode steps; max |err| {worst:.3e} (tolerance "
+          f"{LM_TOL_F32} x (1 + |ref|)); MoE experts equal; "
+          f"{time.perf_counter() - t0:.3f} s; {held / 2**30:.3f} GiB held by earlier "
+          f"phases; {smi}", flush=True)
+
+    def full(arch, **over):
+        cfg = get_config(arch)
+        if reduced_full:
+            cfg = cfg.reduced()
+        return dataclasses.replace(cfg, **over)
+
+    # -- (b) full width, float32: card against CPU, decode against forward --
+    for seed, arch in enumerate(LM_F32_ARCHS):
+        t0 = time.perf_counter()
+        cfg = full(arch, param_dtype="float32")
+        cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(100 + seed))
+        card = Model(cfg, device=dev)
+        card.load_state_dict(cpu.state_dict())
+        n = LM_F32["tokens"]
+        tokens, prefix, P = lm_tokens(torch, cfg, 1, n, 200 + seed, "cpu")
+        tokens_d, prefix_d = tokens.to(dev), None if prefix is None else prefix.to(dev)
+        with torch.no_grad():
+            ref, _ = cpu.forward(tokens, prefix)
+            got, _ = card.forward(tokens_d, prefix_d)
+        e_cpu, ok = lm_max_err(got, ref, LM_TOL_F32_FULL)
+        if not ok:
+            fail(f"lm (b) {arch}: the {dev} forward differs from the CPU's: max |err| {e_cpu}")
+        steps = lm_teacher_forced(card, tokens_d, prefix_d, P, LM_F32["prompt"],
+                                  LM_F32["decode"], n)
+        e_dec = 0.0
+        for i, lg in enumerate(steps):
+            e, ok = lm_max_err(lg, got[:, LM_F32["prompt"] - 1 + i], LM_TOL_F32_FULL)
+            e_dec = max(e_dec, e)
+            if not ok:
+                fail(f"lm (b) {arch}: step {i} of prefill + decode differs from the "
+                     f"forward: max |err| {e}")
+        params = sum(p.numel() for p in card.parameters())
+        print(f"[lm] (b) {arch} full width float32 ({params / 1e6:.1f} M params): "
+              f"forward on (1, {n}) {dev} vs CPU max |err| {e_cpu:.3e}; prefill of "
+              f"{LM_F32['prompt']} + {LM_F32['decode']} decode steps vs the forward "
+              f"max |err| {e_dec:.3e} (tolerance {LM_TOL_F32_FULL} x (1 + |ref|)); max "
+              f"|logit| {float(ref.abs().max()):.3f}; {time.perf_counter() - t0:.3f} s; "
+              f"{smi}", flush=True)
+        record["float32"].append({"arch": arch, "params": params, "err_vs_cpu": e_cpu,
+                                  "err_decode_vs_forward": e_dec})
+        del cpu, card
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # -- (c)-(e) full width, bfloat16 serving --------------------------------
+    for seed, (arch, b, prompt, n_decode, layers) in enumerate(LM_SERVE_RUNS):
+        cfg = full(arch, param_dtype=get_config(arch).param_dtype,
+                   **({} if layers is None else {"n_layers": layers}))
+        if reduced_full:
+            b, prompt, n_decode = 2, 16, min(n_decode, 4)
+        record["serve"].append(lm_serve_run(
+            torch, cfg, b, prompt, n_decode, 300 + seed, dev, smi,
+            census=arch in LM_CENSUS_ARCHS, trace=arch in LM_TRACE_ARCHS,
+            cut=layers is not None))
+    out_dir = Path(out_dir) if out_dir is not None else ROOT / "chiprun_out" / "lm"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "phase17.json", "w") as fh:
+        json.dump(record, fh, indent=1)
+    print(f"[lm] phase 17: {time.perf_counter() - t_phase:.3f} s; record in {out_dir}",
+          flush=True)
+    return record
+
+
+def lm_serve_run(torch, cfg, b: int, prompt: int, n_decode: int, seed: int, dev,
+                 smi: str, census: bool, trace: bool, cut: bool):
+    """One bfloat16 serving run of phase 17 (c), with (d) and (e) when asked
+    (``cut``: the config's depth was cut)."""
+    from repro_torch.models.transformer import Model
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(seed))
+    sync()
+    t_init = time.perf_counter() - t0
+    params = sum(p.numel() for p in model.parameters())
+    max_len = prompt + n_decode
+    tokens, prefix, P = lm_tokens(torch, cfg, b, max_len, seed, dev)
+    # warm-up: a short prefill and a decode step (library handles, caches)
+    lm_teacher_forced(model, tokens, prefix, P, min(prompt, 64), 1, min(prompt, 64) + 1,
+                      sync=sync)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    tap = MoETap(model)
+    times = []
+    steps = lm_teacher_forced(model, tokens, prefix, P, prompt, n_decode, max_len,
+                              sync=sync, times=times)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    prefill_s, step_s = times[0], times[1:]
+    if not all(bool(torch.isfinite(lg).all()) for lg in steps):
+        fail(f"lm (c) {cfg.name}: non-finite logits")
+    routed = tap.routings(cfg)
+    tap.close()
+    n_moe = sum(1 for i in range(cfg.n_layers) if cfg.mlp_kind(i) == "moe")
+    kept_pairs, experts_read, kept_share = [], [], None
+    if n_moe:
+        # the prefill's MoE calls come first, one per MoE layer
+        for _module, r in routed[:n_moe]:
+            E = cfg.n_experts
+            routed_n = torch.bincount(r.expert_idx.reshape(-1), minlength=E)
+            kept_n = torch.bincount(r.expert_idx.reshape(-1)[r.keep.reshape(-1)],
+                                    minlength=E)
+            if not torch.equal(kept_n, routed_n.clamp(max=r.capacity)):
+                fail(f"lm (c) {cfg.name}: kept per expert {kept_n.tolist()} != "
+                     f"min(routed {routed_n.tolist()}, capacity {r.capacity})")
+            kept_pairs.append(int(r.keep.sum()))
+        kept_share = sum(kept_pairs) / (n_moe * b * prompt * cfg.experts_per_token)
+        for _module, r in routed[n_moe:]:
+            experts_read.append(int(torch.unique(r.expert_idx[r.keep]).numel()))
+    flops = lm_prefill_flops(cfg, b, prompt, kept_pairs)
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    prefill_bound = max(flops / PEAK_BF16_FLOPS, weight_bytes / PEAK_BYTES)
+    step_bounds = []
+    for i in range(n_decode):
+        reads = (experts_read[i * n_moe:(i + 1) * n_moe] if n_moe else None)
+        step_bounds.append(lm_decode_bytes(model, b, prompt + i, reads) / PEAK_BYTES)
+    step_ms = sorted(t * 1e3 for t in step_s)
+    p50 = step_ms[len(step_ms) // 2]
+    p99 = step_ms[min(len(step_ms) - 1, int(round(0.99 * (len(step_ms) - 1))))]
+    mean_step = sum(step_ms) / len(step_ms)
+    bound_step = sum(step_bounds) / len(step_bounds) * 1e3
+    row = {"arch": cfg.name, "layers": cfg.n_layers, "params": params, "batch": b,
+           "prompt": prompt, "decode_steps": n_decode, "init_s": t_init,
+           "prefill_s": prefill_s, "prefill_tokens_per_s": b * prompt / prefill_s,
+           "prefill_flops": flops, "prefill_bound_s": prefill_bound,
+           "prefill_bound_tokens_per_s": b * prompt / prefill_bound,
+           "decode_p50_ms": p50, "decode_p99_ms": p99, "decode_mean_ms": mean_step,
+           "decode_tokens_per_s": b * 1e3 / mean_step, "decode_bound_ms": bound_step,
+           "decode_bound_tokens_per_s": b * 1e3 / bound_step, "peak_bytes": peak,
+           "kept_share": kept_share}
+    # decode against the full forward at the same positions
+    if cfg.n_experts == 0:
+        with torch.no_grad():
+            ref, _ = model.forward(tokens, prefix)
+        err = max(float((lg.float() - ref[:, prompt - 1 + i].float()).abs().max())
+                  for i, lg in enumerate(steps))
+        if not err <= LM_TOL_BF16:
+            fail(f"lm (c) {cfg.name}: bfloat16 prefill + decode differ from the full "
+                 f"forward by {err} (tolerance {LM_TOL_BF16})")
+        row["err_decode_vs_forward"] = err
+        row["max_abs_logit"] = float(ref.abs().max())
+        del ref
+    print(f"[lm] (c) {cfg.name}{' depth cut to ' + str(cfg.n_layers) + ' layers' if cut else ''}, "
+          f"bfloat16, {params / 1e9:.3f} B params, batch {b}, prompt {prompt}: prefill "
+          f"{row['prefill_tokens_per_s']:.1f} tokens/s ({prefill_s * 1e3:.3f} ms; bound "
+          f"{prefill_bound * 1e3:.3f} ms = {row['prefill_bound_tokens_per_s']:.1f} tokens/s, "
+          f"{flops / 1e12:.3f} TFLOP at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s); decode "
+          f"{n_decode} steps p50 {p50:.3f} ms p99 {p99:.3f} ms, {row['decode_tokens_per_s']:.1f} "
+          f"tokens/s (bound {bound_step:.3f} ms a step = "
+          f"{row['decode_bound_tokens_per_s']:.1f} tokens/s, bytes at "
+          f"{PEAK_BYTES / 1e12:.2f} TB/s); peak {peak / 2**30:.3f} GiB; "
+          + (f"kept {kept_share:.4f} of (token, slot) pairs, kept == min(routed, "
+             f"capacity) per expert; " if kept_share is not None else "")
+          + (f"decode vs forward max |err| {row['err_decode_vs_forward']:.4f} (max |logit| "
+             f"{row['max_abs_logit']:.3f}, tolerance {LM_TOL_BF16}); "
+             if "err_decode_vs_forward" in row else "")
+          + f"init {t_init:.3f} s; {smi}", flush=True)
+    if census:
+        row["census"] = lm_census(torch, model, tokens, prefix, P, prompt,
+                                  min(n_decode, LM_CENSUS_DECODE), on_card, sync)
+    if trace and on_card:
+        caches = model.prefill(tokens[:, :prompt - P], prefix, max_len=max_len)[1]
+        trace_window(torch, lambda: model.decode_step(tokens[:, prompt - P][:, None],
+                                                      caches),
+                     1, f"lm-trace {cfg.name}", top=8, unit="decode step")
+        del caches
+        trace_window(torch, lambda: model.prefill(tokens[:, :prompt - P], prefix,
+                                                  max_len=max_len),
+                     1, f"lm-trace {cfg.name}", top=8,
+                     unit=f"prefill of {b} x {prompt} tokens")
+    del model, tokens, steps, routed
+    if on_card:
+        torch.cuda.empty_cache()
+    return row
+
+
+def lm_census(torch, model, tokens, prefix, P: int, prompt: int, n_decode: int,
+              on_card: bool, sync):
+    """Phase 17 (d): one prefill and ``n_decode`` decode steps under the
+    sync census; no sync may be charged to ``src/repro_torch/models/``."""
+    census = SyncCensus(torch, on_card)
+    sync()
+    with census:
+        lm_teacher_forced(model, tokens, prefix, P, prompt, n_decode, prompt + n_decode)
+        sync()
+    if census.unattributed:
+        fail(f"lm (d) {model.cfg.name}: {census.unattributed} syncs with no frame "
+             "under src/repro_torch/")
+    in_models = {k: n for k, n in census.sites.items()
+                 if k[0].startswith("src/repro_torch/models/")}
+    if in_models:
+        fail(f"lm (d) {model.cfg.name}: host syncs charged to the LM path: {in_models}")
+    total = sum(census.sites.values())
+    print(f"[lm] (d) {model.cfg.name}: one prefill + {n_decode} decode steps "
+          f"under the sync census: {total} syncs under src/repro_torch/ "
+          f"({len(census.sites)} sites), 0 in src/repro_torch/models/", flush=True)
+    return {"syncs": total, "sites": len(census.sites), "unattributed": census.unattributed}
 
 
 if __name__ == "__main__":

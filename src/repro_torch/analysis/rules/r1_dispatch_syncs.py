@@ -77,8 +77,16 @@ _DRY = "repro_torch.launch.dryrun_rpq"
 _MESH_ROUND = ((_MESH, "MeshExecutor._shards"), (_MESH, "MeshExecutor._closures"),
                (_MESH, "MeshExecutor._valid"), (_MESH, "MeshExecutor._store"),
                (_SEMI, "_DenseLoop.step"), (_SEMI, "_FrontierLoop.step"))
-_A14 = ("no counterpart: the LM seed scaffolding (repro/launch/dryrun.py) is "
-        "not ported yet (ROADMAP A14)")
+_TF = "repro_torch.models.transformer"
+_LAYERS = "repro_torch.models.layers"
+#: the decoder's modules on the serving path, which the model calls as
+#: modules (``self.attn(...)``, ``block(...)``): their forward methods
+_LM_LAYERS = ((_TF, "Model._run_layers"), (_TF, "Model._embed_inputs"),
+              (_TF, "Block.forward"), (_LAYERS, "RMSNorm.forward"),
+              (_LAYERS, "Attention.forward"), (_LAYERS, "MLP.forward"),
+              (_LAYERS, "Embedding.forward"), (_LAYERS, "LMHead.forward"),
+              ("repro_torch.models.ssd", "SSD.forward"),
+              ("repro_torch.models.moe", "MoE.forward"))
 
 #: the JAX package's call-graph roots -> the port's counterparts, or the
 #: reason there is none
@@ -119,8 +127,10 @@ DISPATCH_ROOTS: Dict[FuncKey, Union[Tuple[FuncKey, ...], str]] = {
         # the lowerings call the rounds they build by local name
         (_MESH, "make_sharded_round.round_fn"),
         (_MESH, "make_sharded_frontier_round.round_fn")),
-    ("repro.launch.dryrun", "lower_cell.prefill_step"): _A14,
-    ("repro.launch.dryrun", "lower_cell.serve_step"): _A14,
+    ("repro.launch.dryrun", "lower_cell.prefill_step"):
+        ((_TF, "Model.prefill"),) + _LM_LAYERS,
+    ("repro.launch.dryrun", "lower_cell.serve_step"):
+        ((_TF, "Model.decode_step"),) + _LM_LAYERS,
 }
 
 

@@ -1,0 +1,16 @@
+"""qwen1.5-4b [dense] — QKV bias [hf:Qwen/Qwen1.5-0.5B; hf]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen1.5-4b",
+    family="dense",
+    n_layers=40,
+    d_model=2560,
+    n_heads=20,
+    n_kv_heads=20,
+    head_dim=128,
+    d_ff=6912,
+    vocab_size=151_936,
+    qkv_bias=True,
+    source="hf:Qwen/Qwen1.5-0.5B; hf",
+)

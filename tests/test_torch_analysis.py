@@ -3,8 +3,8 @@ rule catches its seeded-violation fixture and stays silent on its clean
 twin, suppressions work, the CLI gates, the port's tree is clean, and
 the analyzer agrees with the JAX package's (``repro.analysis``) where the
 two rules are the same rule: R2's findings and R5's FIFO half, the JSON
-report's keys, and a port counterpart (or a stated reason) for every
-root of the JAX package's call graph.
+report's keys, and a port counterpart for every root of the JAX
+package's call graph.
 
 Both analyzers are pure stdlib: these tests import neither torch nor
 jax.
@@ -442,11 +442,30 @@ def test_every_jax_root_has_a_port_counterpart():
         f"{sorted(set(DISPATCH_ROOTS) - set(jax_roots))}")
     port = load_project([str(SRC / "repro_torch")])
     for root, entry in DISPATCH_ROOTS.items():
-        if isinstance(entry, str):
-            assert entry.startswith("no counterpart: "), (root, entry)
-            continue
+        # every root is ported: none is left with a "no counterpart" reason
+        assert not isinstance(entry, str), (root, entry)
         missing = [key for key in entry if not port.has_function(key)]
         assert entry and not missing, f"{root}: no port function {missing}"
+
+
+@pytest.mark.parametrize("root,entry,reached", [
+    ("lower_cell.prefill_step", "Model.prefill", "chunked_causal_attention"),
+    ("lower_cell.serve_step", "Model.decode_step", "decode_attention")])
+def test_r1_reaches_the_lm_serving_path(root, entry, reached):
+    """The JAX dry run's serving roots map to the port's Model.prefill and
+    Model.decode_step, and R1 follows them (through the decoder modules'
+    forward methods, which the model calls as modules) down to the
+    attention, the SSD mixer and the MoE dispatch."""
+    keys = DISPATCH_ROOTS[("repro.launch.dryrun", root)]
+    assert ("repro_torch.models.transformer", entry) in keys
+    graph = load_project([str(SRC / "repro_torch")]).callgraph(keys)
+    for key in (("repro_torch.models.layers", reached),
+                ("repro_torch.models.layers", "apply_rope"),
+                ("repro_torch.models.ssd", "ssd_decode_step"),
+                ("repro_torch.models.ssd", "ssd_chunked"),
+                ("repro_torch.models.moe", "_moe_group"),
+                ("repro_torch.models.moe", "route")):
+        assert key in graph.reachable, key
 
 
 # -- the CLI ---------------------------------------------------------------------

@@ -884,3 +884,49 @@ def test_mesh_on_card_equals_local_on_card(cuda, config, grid, cards):
     tensors = _mesh_state_tensors(ex)
     assert tensors and {t.device.type for t in tensors} == {"cuda"}
     assert {t.device for t in tensors} == {torch.device(d) for d in devices}
+
+
+# -- the LM serving path (repro_torch.models) ------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "mamba2-370m", "dbrx-132b"])
+def test_lm_serving_on_card_equals_cpu(cuda, arch):
+    """A reduced dense, SSD and MoE config (float32, weights from a seeded
+    CPU generator copied to the card): forward logits and aux, prefill and
+    six teacher-forced decode steps on the card within 1e-4 x (1 + |ref|)
+    of the CPU's, and the MoE layers' chosen experts equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import MoE, route
+    from repro_torch.models.transformer import Model
+
+    assert not torch.backends.cuda.matmul.allow_tf32   # IEEE float32 matmuls
+    cfg = get_config(arch).reduced()
+    cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(4))
+    card = Model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 24)))
+
+    def run(model, device):
+        seen = []
+        hooks = [m.register_forward_hook(lambda mod, args, out: seen.append((mod, args[0])))
+                 for m in model.modules() if isinstance(m, MoE)]
+        tk = tokens.to(device)
+        with torch.no_grad():
+            logits, aux = model.forward(tk)
+        out = [logits, aux]
+        step, caches = model.prefill(tk[:, :18], max_len=24)
+        out.append(step)
+        for i in range(18, 24):
+            step, caches = model.decode_step(tk[:, i:i + 1], caches)
+            out.append(step)
+        for h in hooks:
+            h.remove()
+        experts = [route(mod, x.reshape(-1, x.shape[-1]), cfg.experts_per_token,
+                         cfg.capacity_factor).expert_idx.cpu() for mod, x in seen]
+        return [t.float().cpu() for t in out], experts
+
+    (ref, ref_experts), (got, got_experts) = run(cpu, "cpu"), run(card, cuda)
+    for r, g in zip(ref, got):
+        assert ((g - r).abs() <= 1e-4 * (1 + r.abs())).all(), float((g - r).abs().max())
+    assert len(got_experts) == len(ref_experts) == (8 * cfg.n_layers if cfg.n_experts else 0)
+    assert all(torch.equal(a, b) for a, b in zip(got_experts, ref_experts))
