@@ -250,6 +250,41 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    device kernels of one decode step and one prefill of mamba2-370m and
    qwen2.5-14b under ``torch.profiler``. Each model is freed before the next; the record
    goes to ``chiprun_out/lm/``.
+18. LM training (``repro_torch.launch.train``, ``repro_torch.optim``:
+   AdamW, the bfloat16 gradient accumulation and the nested remat, plain
+   PyTorch, no kernel of their own). (a) Each ``reduced()`` config in
+   float32, weights from a seeded CPU generator copied to the card: one
+   ``make_train_step`` at ``microbatches`` 1 and one at 2 on (4, 32)
+   tokens, from zero moments, on the card and on the CPU: loss, grad
+   norm, m and v within 1e-4 x (1 + |CPU's|), the lr within 1e-6
+   relative, every parameter within 1e-5 x (1 + |CPU's|) but where the
+   step's clipped gradient lies within 1e-4 (x the clip scale) of zero
+   (Adam's first update is ~lr * sign(g): such an entry may differ by 2
+   lr more; counted). (b) smollm-360m and mamba2-370m at full width in
+   float32, one step on (2, 64) tokens, the same check at 1e-3, and the
+   card's gradients with remat on against remat off within 1e-3 x (1 +
+   |ref|). (c) bfloat16 training at full width with the config's own
+   ``opt_state_dtype``, ``microbatches`` and remat and the train CLI's
+   ``AdamWConfig`` (lr_peak 3e-3, 10 warm-up steps), the port's seeded
+   init and one random batch of 8 x 2048 repeated: smollm-360m and
+   mamba2-370m at full depth, qwen2.5-14b cut to 4 of its 48 layers
+   (its 8 microbatches); 2 warm-up and 5 timed steps: step p50 and
+   tokens/s beside the FLOP bound (3 x the forward's matmul and attention
+   FLOPs, the LM head on every position, no recompute, over 989 TFLOP/s),
+   the update's CUDA-event time beside its byte bound (params, grads, m
+   and v read, params, m and v written, over 3.35 TB/s), peak memory
+   (smollm's also for one loss + backward on 1 x 2048 with remat on and
+   off); asserts a finite loss that falls below 0.9 x the first step's
+   within the run (at qwen's width the warm-up to lr 3e-3 overshoots after
+   memorizing the batch, as the JAX reference does). (d) dbrx-132b cut to 1 of its
+   40 layers: the gradients accumulated over its 8 microbatches of a
+   batch of 8 x 2048, the clip and the grad norm, without the update
+   (its float32 moments would not fit beside them); time, peak, the MoE
+   kept share, every gradient finite. (e) Two train steps of the qwen run
+   under phase 16's sync census: no sync charged to
+   ``src/repro_torch/{models,optim}/`` or ``launch/train.py``. (f) The top
+   device kernels of one qwen train step. The record goes to
+   ``chiprun_out/lm/phase18.json``.
 
 The last three lines of standard output are the kernels JSON line, the
 ``nvidia-smi`` name/power-limit line, and the ``{"ok": true, ...}`` line.
@@ -259,6 +294,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import math
 import os
 import re
 import subprocess
@@ -349,6 +385,25 @@ LM_TOL_F32_FULL = 1e-3    # (b): card vs CPU, and decode vs the full forward
 # max |6|); a misplaced position or cache row moves logits by O(|logit|)
 LM_TOL_BF16 = 0.5
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bfloat16 (published)
+# phase 18, LM training
+LM_TRAIN_OPT = dict(lr_peak=3e-3, warmup_steps=10)   # the train CLI's AdamWConfig
+LM_TRAIN_STEPS = 10       # total_steps of (a) and (b)'s schedule
+LM_TRAIN_REDUCED = (4, 32)   # (a) batch, tokens
+LM_TRAIN_F32 = (2, 64)       # (b) batch, tokens
+# (c) full width, bfloat16: (arch, batch, tokens, layers or None)
+LM_TRAIN_RUNS = (("smollm-360m", 8, 2048, None), ("mamba2-370m", 8, 2048, None),
+                 ("qwen2.5-14b", 8, 2048, 4))
+LM_TRAIN_WARMUP, LM_TRAIN_TIMED = 2, 5
+LM_TRAIN_FALL = 0.9       # (c): some step's loss below 0.9 x the first step's
+LM_TRAIN_UPDATE_REPS = 3
+LM_TRAIN_REMAT_ARCH, LM_TRAIN_REMAT_BATCH = "smollm-360m", 1   # (c) peak, remat on / off
+LM_TRAIN_CENSUS_ARCH, LM_TRAIN_CENSUS_STEPS = "qwen2.5-14b", 2  # (e), (f)
+LM_TRAIN_GRADS = ("dbrx-132b", 8, 2048, 1)                     # (d)
+# Adam's first update is ~lr * sign(g): a parameter whose gradient lies
+# within LM_TRAIN_EPS_G of zero may differ by 2 lr; every other parameter
+# within LM_TRAIN_TOL_PARAM x (1 + |ref|)
+LM_TRAIN_EPS_G = 1e-4
+LM_TRAIN_TOL_PARAM = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -1143,6 +1198,9 @@ def main() -> None:
 
     # -- 17. the LM serving path: prefill and decode at full width ------------
     lm_phase(torch, smi_line)
+
+    # -- 18. LM training: train steps, accumulation, remat, AdamW ------------
+    lm_train_phase(torch, smi_line)
 
     e5, b6p = b5_rows["frontier"], b6_rows["path"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
@@ -3428,8 +3486,11 @@ def lm_serve_run(torch, cfg, b: int, prompt: int, n_decode: int, seed: int, dev,
              if "err_decode_vs_forward" in row else "")
           + f"init {t_init:.3f} s; {smi}", flush=True)
     if census:
-        row["census"] = lm_census(torch, model, tokens, prefix, P, prompt,
-                                  min(n_decode, LM_CENSUS_DECODE), on_card, sync)
+        n = min(n_decode, LM_CENSUS_DECODE)
+        row["census"] = lm_census(
+            torch, lambda: lm_teacher_forced(model, tokens, prefix, P, prompt, n, prompt + n),
+            on_card, sync, ("src/repro_torch/models/",), f"lm (d) {cfg.name}",
+            f"one prefill + {n} decode steps")
     if trace and on_card:
         caches = model.prefill(tokens[:, :prompt - P], prefix, max_len=max_len)[1]
         trace_window(torch, lambda: model.decode_step(tokens[:, prompt - P][:, None],
@@ -3446,27 +3507,397 @@ def lm_serve_run(torch, cfg, b: int, prompt: int, n_decode: int, seed: int, dev,
     return row
 
 
-def lm_census(torch, model, tokens, prefix, P: int, prompt: int, n_decode: int,
-              on_card: bool, sync):
-    """Phase 17 (d): one prefill and ``n_decode`` decode steps under the
-    sync census; no sync may be charged to ``src/repro_torch/models/``."""
+def lm_census(torch, run, on_card: bool, sync, watched, tag: str, what: str):
+    """Phases 17 (d) and 18 (e): ``run()`` under the sync census; no sync
+    may be charged to a path that starts with one of ``watched``."""
     census = SyncCensus(torch, on_card)
     sync()
     with census:
-        lm_teacher_forced(model, tokens, prefix, P, prompt, n_decode, prompt + n_decode)
+        run()
         sync()
     if census.unattributed:
-        fail(f"lm (d) {model.cfg.name}: {census.unattributed} syncs with no frame "
-             "under src/repro_torch/")
-    in_models = {k: n for k, n in census.sites.items()
-                 if k[0].startswith("src/repro_torch/models/")}
-    if in_models:
-        fail(f"lm (d) {model.cfg.name}: host syncs charged to the LM path: {in_models}")
+        fail(f"{tag}: {census.unattributed} syncs with no frame under src/repro_torch/")
+    bad = {k: n for k, n in census.sites.items() if k[0].startswith(watched)}
+    if bad:
+        fail(f"{tag}: host syncs charged to {', '.join(watched)}: {bad}")
     total = sum(census.sites.values())
-    print(f"[lm] (d) {model.cfg.name}: one prefill + {n_decode} decode steps "
-          f"under the sync census: {total} syncs under src/repro_torch/ "
-          f"({len(census.sites)} sites), 0 in src/repro_torch/models/", flush=True)
+    print(f"[{tag.split()[0]}] {tag.split(' ', 1)[1]}: {what} under the sync census: "
+          f"{total} syncs under src/repro_torch/ ({len(census.sites)} sites), 0 in "
+          f"{', '.join(watched)}", flush=True)
     return {"syncs": total, "sites": len(census.sites), "unattributed": census.unattributed}
+
+# -- phase 18: LM training ------------------------------------------------------
+
+
+def lm_train_flops(cfg, b: int, s: int) -> float:
+    """3 x the forward FLOPs of a train step on ``b`` sequences of ``s``
+    tokens: :func:`lm_prefill_flops` with the LM head on every position the
+    loss reads (``s - 1``), without the remat's recompute. Dense configs
+    only (no routed experts)."""
+    head = 2 * b * cfg.d_model * cfg.vocab_size
+    return 3 * (lm_prefill_flops(cfg, b, s) - head + head * (s - 1))
+
+
+def lm_update_bytes(model, state, grads) -> int:
+    """The bytes AdamW must move: params, grads, m and v read once; params,
+    m and v written once."""
+    total = 0
+    for k, p in model.named_parameters():
+        n = p.numel()
+        total += n * (2 * p.element_size() + grads[k].element_size()
+                      + 2 * state.m[k].element_size() + 2 * state.v[k].element_size())
+    return total
+
+
+def lm_train_check(torch, got, ref, opt, tol: float, what: str):
+    """Phase 18's comparison of one train step from zero moments, ``got``
+    against ``ref`` (each (model, state, metrics)): loss and grad norm
+    within ``tol`` x (1 + |ref|), lr within 1e-6 relative, m and v within
+    ``tol`` x (1 + |ref|); every parameter within ``LM_TRAIN_TOL_PARAM`` x
+    (1 + |ref|), except where the step's clipped gradient lies within
+    ``LM_TRAIN_EPS_G`` (x the clip scale) of zero, read from ref's first
+    moment (m = (1 - b1) g after one step): there Adam's first update,
+    ~lr * sign(g), may flip, so such an entry may differ by 2 lr more.
+    Returns (max |err| over metrics and moments, entries excused)."""
+    gm, gs, gmet = got
+    rm, rs, rmet = ref
+    worst = 0.0
+    for k in ("loss", "grad_norm"):
+        e, ok = lm_max_err(gmet[k], rmet[k], tol)
+        worst = max(worst, e)
+        if not ok:
+            fail(f"lm-train {what}: {k} {float(gmet[k])} against {float(rmet[k])}")
+    lr = float(rmet["lr"])
+    if abs(float(gmet["lr"]) - lr) > 1e-6 * lr:
+        fail(f"lm-train {what}: lr {float(gmet['lr'])} against {lr}")
+    if int(gs.step) != int(rs.step):
+        fail(f"lm-train {what}: step {int(gs.step)} against {int(rs.step)}")
+    scale = min(1.0, opt.clip_norm / (float(rmet["grad_norm"]) + 1e-9))
+    ref_params = dict(rm.named_parameters())
+    excused = 0
+    for k, p in gm.named_parameters():
+        for name, a, b in (("m", gs.m[k], rs.m[k]), ("v", gs.v[k], rs.v[k])):
+            e, ok = lm_max_err(a, b, tol)
+            worst = max(worst, e)
+            if not ok:
+                fail(f"lm-train {what}: {name} of {k} differs: max |err| {e}")
+        a, b = p.detach().float().cpu(), ref_params[k].detach().float().cpu()
+        err, tight = (a - b).abs(), LM_TRAIN_TOL_PARAM * (1 + b.abs())
+        near_zero = rs.m[k].float().cpu().abs() <= (1 - opt.b1) * LM_TRAIN_EPS_G * scale
+        if not ((err <= tight) | (near_zero & (err <= tight + 2 * lr))).all():
+            fail(f"lm-train {what}: parameter {k} differs by {float((err - tight).max())} "
+                 f"beyond {LM_TRAIN_TOL_PARAM} x (1 + |ref|) where its gradient is not "
+                 f"within {LM_TRAIN_EPS_G} of zero")
+        excused += int((err > tight).sum())
+    return worst, excused
+
+
+def lm_train_phase(torch, smi: str, device=None, reduced_full: bool = False, out_dir=None):
+    """Phase 18: LM training (``repro_torch.launch.train``, ``repro_torch.
+    optim``). (a) every reduced config in float32, the card against the
+    CPU from the same seeded weights: one ``make_train_step`` at
+    ``microbatches`` 1 and one at 2 (bfloat16 accumulation), held by
+    :func:`lm_train_check`; (b) smollm-360m and mamba2-370m at full width in
+    float32, one step on ``LM_TRAIN_F32`` tokens, card against CPU, and the
+    card's gradients with remat on against remat off; (c) the bfloat16
+    runs of ``LM_TRAIN_RUNS`` (the config's ``opt_state_dtype``,
+    ``microbatches`` and remat, the CLI's ``AdamWConfig``, a fixed batch):
+    warm-up and timed steps, step p50 and tokens/s beside the FLOP bound,
+    the update's time beside its byte bound, peak memory, a finite loss
+    that falls, and smollm's peak with remat on and off; (d) dbrx-132b cut
+    to ``LM_TRAIN_GRADS``' layers: the accumulated gradients, the clip and
+    the grad norm without the update (kept share, peak, time, finite);
+    (e) two train steps of the qwen run under the sync census: none in
+    ``models/``, ``optim/`` or ``launch/train.py``; (f) the top device
+    kernels of one qwen step. ``device="cpu"`` with ``reduced_full=True``
+    rehearses on the CPU with the reduced configs at small sizes."""
+    import dataclasses
+
+    from repro_torch.configs import ARCH_NAMES, get_config
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim.adamw import AdamWConfig, init_adamw
+
+    on_card = device is None
+    dev = torch.device("cuda" if on_card else device)
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+    if on_card:
+        torch.cuda.empty_cache()
+    record = {"device": smi, "reduced": [], "float32": [], "train": [], "grads": None}
+
+    def one_step(model, opt, batch, d):
+        state = init_adamw(opt, model)
+        return make_train_step(model, opt)(model, state, {k: v.to(d) for k, v in batch.items()})
+
+    # -- (a) every reduced config, M = 1 and 2, card against CPU ------------
+    t0 = time.perf_counter()
+    worst, excused = 0.0, 0
+    for seed, arch in enumerate(ARCH_NAMES):
+        for M in (1, 2):
+            cfg = dataclasses.replace(get_config(arch).reduced(), microbatches=M)
+            opt = AdamWConfig(**LM_TRAIN_OPT, total_steps=LM_TRAIN_STEPS,
+                              moment_dtype=cfg.opt_state_dtype)
+            base = Model(cfg, device="cpu").init(torch.Generator().manual_seed(seed))
+            card = Model(cfg, device=dev)
+            card.load_state_dict(base.state_dict())
+            tokens, prefix, _P = lm_tokens(torch, cfg, *LM_TRAIN_REDUCED, seed, "cpu")
+            batch = {"tokens": tokens, **({} if prefix is None else {"prefix_embeds": prefix})}
+            ref = one_step(base, opt, batch, cpu)
+            got = one_step(card, opt, batch, dev)
+            e, n = lm_train_check(torch, got, ref, opt, LM_TOL_F32, f"(a) {arch} M={M}")
+            worst, excused = max(worst, e), excused + n
+            record["reduced"].append({"arch": cfg.name, "microbatches": M, "max_abs_err": e,
+                                      "excused": n, "loss": float(ref[2]["loss"])})
+            del base, card, ref, got
+    print(f"[lm-train] (a) {len(ARCH_NAMES)} reduced configs x microbatches 1 and 2, "
+          f"float32, one train step on {dev} against the CPU: loss, grad norm, m, v max "
+          f"|err| {worst:.3e} (tolerance {LM_TOL_F32} x (1 + |ref|)); parameters within "
+          f"{LM_TRAIN_TOL_PARAM} x (1 + |ref|) but {excused} entries whose gradient lies "
+          f"within {LM_TRAIN_EPS_G} of zero (Adam's sign); {time.perf_counter() - t0:.3f} s; "
+          f"{smi}", flush=True)
+
+    def full(arch, **over):
+        cfg = get_config(arch)
+        if reduced_full:
+            cfg = cfg.reduced()
+        return dataclasses.replace(cfg, **over)
+
+    # -- (b) full width, float32: card against CPU, remat on against off ----
+    from repro_torch.launch.train import loss_and_grads
+
+    for seed, arch in enumerate(LM_F32_ARCHS):
+        t0 = time.perf_counter()
+        cfg = full(arch, param_dtype="float32", microbatches=1, remat=True)
+        opt = AdamWConfig(**LM_TRAIN_OPT, total_steps=LM_TRAIN_STEPS)
+        base = Model(cfg, device="cpu").init(torch.Generator().manual_seed(400 + seed))
+        card = Model(cfg, device=dev)
+        card.load_state_dict(base.state_dict())
+        tokens, prefix, _P = lm_tokens(torch, cfg, *LM_TRAIN_F32, 500 + seed, "cpu")
+        batch = {"tokens": tokens}
+        on_loss, on_grads = loss_and_grads(card, {"tokens": tokens.to(dev)})
+        card.cfg = dataclasses.replace(cfg, remat=False)
+        off_loss, off_grads = loss_and_grads(card, {"tokens": tokens.to(dev)})
+        card.cfg = cfg
+        e_remat, ok = lm_max_err(on_loss, off_loss, LM_TOL_F32_FULL)
+        for k, g in on_grads.items():
+            e, ok_k = lm_max_err(g, off_grads[k], LM_TOL_F32_FULL)
+            e_remat, ok = max(e_remat, e), ok and ok_k
+        if not ok:
+            fail(f"lm-train (b) {arch}: gradients with remat on differ from remat off on "
+                 f"{dev}: max |err| {e_remat}")
+        del on_grads, off_grads
+        ref = one_step(base, opt, batch, cpu)
+        got = one_step(card, opt, batch, dev)
+        e, n = lm_train_check(torch, got, ref, opt, LM_TOL_F32_FULL, f"(b) {arch}")
+        params = sum(p.numel() for p in card.parameters())
+        print(f"[lm-train] (b) {arch} full width float32 ({params / 1e6:.1f} M params), one "
+              f"train step on {LM_TRAIN_F32} tokens, {dev} against the CPU: loss "
+              f"{float(ref[2]['loss']):.4f}, grad norm {float(ref[2]['grad_norm']):.4f}; "
+              f"loss, grad norm, m, v max |err| {e:.3e}; parameters within "
+              f"{LM_TRAIN_TOL_PARAM} x (1 + |ref|) but {n} near-zero-gradient entries; "
+              f"remat on vs off on {dev}: loss and gradients max |err| {e_remat:.3e} "
+              f"(tolerance {LM_TOL_F32_FULL} x (1 + |ref|)); "
+              f"{time.perf_counter() - t0:.3f} s; {smi}", flush=True)
+        record["float32"].append({"arch": arch, "params": params, "max_abs_err": e,
+                                  "excused": n, "remat_err": e_remat})
+        del base, card, ref, got
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # -- (c), (e), (f): bfloat16 training at full width -----------------------
+    for seed, (arch, b, s, layers) in enumerate(LM_TRAIN_RUNS):
+        cfg = full(arch, **({} if layers is None else {"n_layers": layers}))
+        if reduced_full:
+            b, s = 4, 32
+        record["train"].append(lm_train_run(
+            torch, cfg, b, s, 600 + seed, dev, smi, cut=layers is not None,
+            remat_peak=arch == LM_TRAIN_REMAT_ARCH,
+            census_trace=arch == LM_TRAIN_CENSUS_ARCH))
+
+    # -- (d) dbrx cut: accumulated gradients, clip and norm, no update --------
+    arch, b, s, layers = LM_TRAIN_GRADS
+    cfg = full(arch, n_layers=layers)
+    if reduced_full:
+        b, s = 8, 32
+    record["grads"] = lm_grads_run(torch, cfg, b, s, 700, dev, smi)
+
+    out_dir = Path(out_dir) if out_dir is not None else ROOT / "chiprun_out" / "lm"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "phase18.json", "w") as fh:
+        json.dump(record, fh, indent=1)
+    print(f"[lm-train] phase 18: {time.perf_counter() - t_phase:.3f} s; record in {out_dir}",
+          flush=True)
+    return record
+
+
+def lm_train_run(torch, cfg, b: int, s: int, seed: int, dev, smi: str, cut: bool,
+                 remat_peak: bool, census_trace: bool):
+    """One bfloat16 training run of phase 18 (c), with (e) and (f) when
+    ``census_trace``: ``LM_TRAIN_WARMUP`` + ``LM_TRAIN_TIMED`` steps on one
+    fixed batch."""
+    import dataclasses
+
+    from repro_torch.launch.train import loss_and_grads, make_train_step
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_adamw
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    n_steps = LM_TRAIN_WARMUP + LM_TRAIN_TIMED
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(seed))
+    opt = AdamWConfig(**LM_TRAIN_OPT, total_steps=n_steps, moment_dtype=cfg.opt_state_dtype)
+    state = init_adamw(opt, model)
+    sync()
+    t_init = time.perf_counter() - t0
+    params = sum(p.numel() for p in model.parameters())
+    tokens, _prefix, _P = lm_tokens(torch, cfg, b, s, seed, dev)
+    batch = {"tokens": tokens}
+    step = make_train_step(model, opt)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        model, state, met = step(model, state, batch)
+        sync()
+        times.append(time.perf_counter() - t0)
+        losses.append(met["loss"])
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    losses = [float(x) for x in losses]
+    # the loss must fall: below LM_TRAIN_FALL x the first step's within the
+    # run. Not "the last below the first": at qwen2.5-14b's width the CLI's
+    # warm-up to lr 3e-3 memorizes the fixed batch in two steps and then
+    # overshoots, and the JAX reference's loss does the same step for step
+    low = min(range(1, n_steps), key=lambda i: losses[i])
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[low] < LM_TRAIN_FALL * losses[0]:
+        fail(f"lm-train (c) {cfg.name}: losses {losses} are not finite and falling")
+    step_ms = sorted(t * 1e3 for t in times[LM_TRAIN_WARMUP:])
+    p50 = step_ms[len(step_ms) // 2]
+    flops = lm_train_flops(cfg, b, s)
+    bound_ms = flops / PEAK_BF16_FLOPS * 1e3
+    # the update alone: AdamW over one step's gradients, CUDA events
+    _loss, grads = loss_and_grads(model, batch, cfg.microbatches)
+    upd_bytes = lm_update_bytes(model, state, grads)
+    if on_card:
+        upd_ms = time_cuda(torch, lambda: adamw_update(opt, model, grads, state),
+                           LM_TRAIN_UPDATE_REPS)
+    else:
+        t0 = time.perf_counter()
+        adamw_update(opt, model, grads, state)
+        upd_ms = (time.perf_counter() - t0) * 1e3
+    del grads
+    upd_bound_ms = upd_bytes / PEAK_BYTES * 1e3
+    row = {"arch": cfg.name, "layers": cfg.n_layers, "params": params, "batch": b, "seq": s,
+           "microbatches": cfg.microbatches, "remat": cfg.remat,
+           "moment_dtype": cfg.opt_state_dtype, "init_s": t_init,
+           "step_ms": [t * 1e3 for t in times], "step_p50_ms": p50,
+           "tokens_per_s": b * s / p50 * 1e3, "flops": flops, "bound_ms": bound_ms,
+           "bound_tokens_per_s": b * s / bound_ms * 1e3, "update_ms": upd_ms,
+           "update_bytes": upd_bytes, "update_bound_ms": upd_bound_ms, "peak_bytes": peak,
+           "losses": losses, "last_below_first": losses[-1] < losses[0]}
+    print(f"[lm-train] (c) {cfg.name}{' depth cut to ' + str(cfg.n_layers) + ' layers' if cut else ''}, "
+          f"{cfg.param_dtype}, {params / 1e9:.3f} B params, batch {b} x {s}, microbatches "
+          f"{cfg.microbatches}, remat {cfg.remat}, moments {cfg.opt_state_dtype}: step p50 "
+          f"{p50:.3f} ms over {LM_TRAIN_TIMED} timed steps ({row['tokens_per_s']:.1f} "
+          f"tokens/s; bound {bound_ms:.3f} ms = {row['bound_tokens_per_s']:.1f} tokens/s, "
+          f"{flops / 1e12:.3f} TFLOP at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s); update "
+          f"{upd_ms:.3f} ms (bound {upd_bound_ms:.3f} ms, {upd_bytes / 1e9:.3f} GB at "
+          f"{PEAK_BYTES / 1e12:.2f} TB/s); peak {peak / 2**30:.3f} GiB; loss "
+          f"{losses[0]:.4f} -> {losses[low]:.4f} (step {low + 1}) -> {losses[-1]:.4f} "
+          f"(step {n_steps}; {' '.join(f'{x:.4f}' for x in losses)}); init {t_init:.3f} s; "
+          f"{smi}", flush=True)
+    if remat_peak and on_card:
+        # peak of one loss and backward at LM_TRAIN_REMAT_BATCH, remat on and off
+        peaks = {}
+        small = {"tokens": tokens[:LM_TRAIN_REMAT_BATCH]}
+        base_cfg = model.cfg
+        for remat in (True, False):
+            model.cfg = dataclasses.replace(base_cfg, remat=remat, microbatches=1)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            _l, g = loss_and_grads(model, small)
+            sync()
+            peaks[remat] = (torch.cuda.max_memory_allocated(), held)
+            del g
+        model.cfg = base_cfg
+        row["remat_peak"] = {"batch": LM_TRAIN_REMAT_BATCH, "on_bytes": peaks[True][0],
+                             "off_bytes": peaks[False][0], "held_bytes": peaks[True][1]}
+        print(f"[lm-train] (c) {cfg.name}: one loss + backward on {LM_TRAIN_REMAT_BATCH} x "
+              f"{s} tokens, peak {peaks[True][0] / 2**30:.3f} GiB with remat, "
+              f"{peaks[False][0] / 2**30:.3f} GiB without ({peaks[True][1] / 2**30:.3f} GiB "
+              f"of weights and moments held); {smi}", flush=True)
+    if census_trace:
+        def two_steps():
+            for _ in range(LM_TRAIN_CENSUS_STEPS):
+                step(model, state, batch)
+
+        row["census"] = lm_census(
+            torch, two_steps, on_card, sync,
+            ("src/repro_torch/models/", "src/repro_torch/optim/",
+             "src/repro_torch/launch/train.py"), f"lm-train (e) {cfg.name}",
+            f"{LM_TRAIN_CENSUS_STEPS} train steps")
+        if on_card:
+            trace_window(torch, lambda: step(model, state, batch), 1,
+                         f"lm-train-trace {cfg.name}", top=8,
+                         unit=f"train step of {b} x {s} tokens")
+    del model, state, tokens, batch
+    if on_card:
+        torch.cuda.empty_cache()
+    return row
+
+
+def lm_grads_run(torch, cfg, b: int, s: int, seed: int, dev, smi: str):
+    """Phase 18 (d): the accumulated gradients over the config's
+    microbatches, the clip and the grad norm, without the update (the
+    float32 moments of the cut model would not fit beside them)."""
+    from repro_torch.launch.train import loss_and_grads
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim.adamw import clip_by_global_norm
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(seed))
+    params = sum(p.numel() for p in model.parameters())
+    largest = max(p.numel() for p in model.parameters())
+    tokens, _prefix, _P = lm_tokens(torch, cfg, b, s, seed, dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    tap = MoETap(model)
+    sync()
+    t0 = time.perf_counter()
+    loss, grads = loss_and_grads(model, {"tokens": tokens}, cfg.microbatches)
+    grads, norm = clip_by_global_norm(grads, 1.0)
+    sync()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    tap.close()
+    finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    if not (finite and math.isfinite(float(loss)) and math.isfinite(float(norm))):
+        fail(f"lm-train (d) {cfg.name}: non-finite loss, gradients or grad norm")
+    kept = routed = 0
+    for _module, r in tap.routings(cfg):
+        kept += int(r.keep.sum())
+        routed += r.keep.numel()
+    share = kept / routed if routed else None
+    row = {"arch": cfg.name, "layers": cfg.n_layers, "params": params, "largest_leaf": largest,
+           "batch": b, "seq": s, "microbatches": cfg.microbatches, "seconds": wall,
+           "peak_bytes": peak, "loss": float(loss), "grad_norm": float(norm),
+           "kept_share": share, "moe_calls": len(tap.calls)}
+    print(f"[lm-train] (d) {cfg.name} depth cut to {cfg.n_layers} layers, bfloat16, "
+          f"{params / 1e9:.3f} B params (largest leaf {largest / 1e9:.3f} G), batch {b} x {s} "
+          f"in {cfg.microbatches} microbatches, remat {cfg.remat}: accumulated gradients, "
+          f"clip and grad norm (no update) in {wall:.3f} s; loss {float(loss):.4f}, grad "
+          f"norm {float(norm):.4f}, every gradient finite; kept {share:.4f} of (token, slot) "
+          f"pairs over the {len(tap.calls)} MoE calls recorded; peak "
+          f"{peak / 2**30:.3f} GiB; {smi}", flush=True)
+    del model, grads, tokens
+    if on_card:
+        torch.cuda.empty_cache()
+    return row
 
 
 if __name__ == "__main__":

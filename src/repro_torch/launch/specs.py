@@ -4,7 +4,7 @@ tensors on the ``meta`` device, which allocate nothing. The port of
 
 Decode shapes describe ONE new token against a KV/SSM cache of ``seq_len``
 (capacity ``seq_len + DECODE_HEADROOM`` so the cache write stays in
-bounds). ``abstract_opt_state`` comes with the training slice.
+bounds).
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import torch
 
 from ..configs.base import ShapeConfig
 from ..models.transformer import Cache, Model
+from ..optim.adamw import AdamWConfig, AdamWState, init_adamw
 
 DECODE_HEADROOM = 512  # keeps cache seq divisible by the batch axes (32-way)
 META = torch.device("meta")
@@ -41,3 +42,9 @@ def abstract_params(model: Model) -> Dict[str, torch.Tensor]:
     tensors of their shapes and dtypes."""
     meta = Model(model.cfg, tp=model.tp, constrain=model.constrain, device=META)
     return {name: p.detach() for name, p in meta.named_parameters()}
+
+
+def abstract_opt_state(model: Model, opt_cfg: AdamWConfig) -> AdamWState:
+    """``init_adamw``'s state for the model, as meta tensors (the moments by
+    parameter name)."""
+    return init_adamw(opt_cfg, abstract_params(model))

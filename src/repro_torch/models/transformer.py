@@ -14,7 +14,10 @@ reference's ``(n_periods,)`` parameter stacks and its ``lax.scan`` over
 periods have no counterpart here (``repro_torch.models.params`` maps one
 layout onto the other). Serving caches are a list with one dict a layer.
 The serving entry points run without autograd; ``forward`` and ``loss``
-keep it.
+keep it. Where ``cfg.remat`` is set and autograd records, a train-mode
+pass checkpoints each period of layers and each layer inside it, as the
+reference's nested ``jax.checkpoint`` does; the fused LM-head
+cross-entropy checkpoints each chunk.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
@@ -198,6 +202,14 @@ class Model(nn.Module):
                     positions: Optional[torch.Tensor], max_len: int = 0,
                     ) -> Tuple[torch.Tensor, Optional[List[Cache]], torch.Tensor]:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if mode == "train" and self.cfg.remat and torch.is_grad_enabled():
+            # NESTED remat, as the reference's: the outer checkpoint keeps
+            # only period-boundary activations; the inner per-layer ones
+            # bound the live set during a period's backward to one layer's
+            # internals (the forward runs ~3x)
+            for p in range(self.n_periods):
+                x, aux = checkpoint(self._remat_period, x, aux, p, use_reentrant=False)
+            return x, None, aux
         new_caches: List[Cache] = []
         for i, block in enumerate(self.layers):
             x, nc, a = block(self, x, caches[i] if mode == "decode" else None,
@@ -205,6 +217,19 @@ class Model(nn.Module):
             new_caches.append(nc)
             aux = aux + a
         return x, (None if mode == "train" else new_caches), aux
+
+    def _remat_period(self, x: torch.Tensor, aux: torch.Tensor, p: int,
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Layers ``[p * period, (p + 1) * period)`` in train mode, each
+        under its own checkpoint; aux accumulates in the loop's order."""
+        for i in range(p * self.period, (p + 1) * self.period):
+            x, a = checkpoint(self._train_layer, x, i, use_reentrant=False)
+            aux = aux + a
+        return x, aux
+
+    def _train_layer(self, x: torch.Tensor, i: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        x, _cache, a = self.layers[i](self, x, None, "train", None, 0)
+        return x, a
 
     # -- embedding & frontends --------------------------------------------------
 
@@ -289,17 +314,27 @@ class Model(nn.Module):
 def _chunked_softmax_xent(w: torch.Tensor, x: torch.Tensor, targets: torch.Tensor,
                           chunk: int) -> torch.Tensor:
     """Fused LM-head + cross-entropy, chunked over sequence positions so the
-    logits working set is (b, chunk, V) instead of (b, s, V)."""
+    logits working set is (b, chunk, V) instead of (b, s, V). While
+    autograd records, each chunk is checkpointed: without it backward keeps
+    every chunk's logits, and the (b, s, V) tensor comes back."""
     b, s, d = x.shape
     pad = (-s) % chunk
     if pad:
         x = F.pad(x, (0, 0, 0, pad))
         targets = F.pad(targets, (0, pad))
     mask = torch.arange(x.shape[1], device=x.device) < s
+    remat = torch.is_grad_enabled()
     totals = []
     for c0 in range(0, x.shape[1], chunk):
-        logits = (x[:, c0:c0 + chunk] @ w).float()             # (b, chunk, V)
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = torch.gather(logits, -1, targets[:, c0:c0 + chunk, None].long())[..., 0]
-        totals.append(torch.sum((lse - tgt) * mask[c0:c0 + chunk]))
+        args = (w, x[:, c0:c0 + chunk], targets[:, c0:c0 + chunk], mask[c0:c0 + chunk])
+        totals.append(checkpoint(_xent_chunk, *args, use_reentrant=False) if remat
+                      else _xent_chunk(*args))
     return torch.sum(torch.stack(totals)) / (b * s)
+
+
+def _xent_chunk(w: torch.Tensor, x: torch.Tensor, targets: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+    logits = (x @ w).float()                                   # (b, chunk, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return torch.sum((lse - tgt) * mask)

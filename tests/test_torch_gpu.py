@@ -5,7 +5,8 @@ row-sparse dist, the float and the bucket backend, and the legacy
 single-query closure); the service's checkpoints on the card (restored on
 the card with every executor tensor there, and across card and CPU) and
 the supervised service's crash-recovery identity on the card; the mesh
-executor over ``["cuda:0"] * 4`` against the local executor on the card.
+executor over ``["cuda:0"] * 4`` against the local executor on the card;
+the LM serving path and one LM train step on the card against the CPU.
 
 Marked ``gpu``; each skips (from the ``cuda`` fixture, never at import or
 collection) where there is no card. On the card:
@@ -930,3 +931,54 @@ def test_lm_serving_on_card_equals_cpu(cuda, arch):
         assert ((g - r).abs() <= 1e-4 * (1 + r.abs())).all(), float((g - r).abs().max())
     assert len(got_experts) == len(ref_experts) == (8 * cfg.n_layers if cfg.n_experts else 0)
     assert all(torch.equal(a, b) for a, b in zip(got_experts, ref_experts))
+
+
+# -- LM training (repro_torch.launch.train, repro_torch.optim) --------------------
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "mamba2-370m", "dbrx-132b"])
+def test_lm_train_step_on_card_equals_cpu(cuda, arch):
+    """A reduced dense, SSD and MoE config (float32, weights from a seeded
+    CPU generator copied to the card): one train step at ``microbatches`` 1
+    and at 2 (bfloat16 accumulation) from zero moments on the card and on
+    the CPU. Loss, grad norm, m and v within 1e-4 x (1 + |CPU's|), the lr
+    within 1e-6 relative; every parameter within 1e-5 x (1 + |CPU's|),
+    except where the step's clipped gradient lies within 1e-4 (x the clip
+    scale) of zero: there Adam's first update, ~lr * sign(g), may flip, so
+    such an entry may differ by 2 lr more."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim.adamw import AdamWConfig, init_adamw
+
+    assert not torch.backends.cuda.matmul.allow_tf32   # IEEE float32 matmuls
+    opt = AdamWConfig(lr_peak=3e-3, warmup_steps=10, total_steps=10)
+
+    def close(a, b, tol=1e-4):
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        return bool(((a - b).abs() <= tol * (1 + b.abs())).all())
+
+    for M in (1, 2):
+        cfg = dataclasses.replace(get_config(arch).reduced(), microbatches=M)
+        cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(5))
+        card = Model(cfg, device=cuda)
+        card.load_state_dict(cpu.state_dict())
+        tokens = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab_size, (4, 32)))
+        out = []
+        for model, device in ((cpu, "cpu"), (card, cuda)):
+            state = init_adamw(opt, model)
+            out.append(make_train_step(model, opt)(model, state, {"tokens": tokens.to(device)}))
+        (rm, rs, rmet), (gm, gs, gmet) = out
+        assert close(gmet["loss"], rmet["loss"]) and close(gmet["grad_norm"], rmet["grad_norm"])
+        lr = float(rmet["lr"])
+        assert abs(float(gmet["lr"]) - lr) <= 1e-6 * lr and int(gs.step) == int(rs.step) == 1
+        scale = min(1.0, opt.clip_norm / (float(rmet["grad_norm"]) + 1e-9))
+        ref_params = dict(rm.named_parameters())
+        for k, p in gm.named_parameters():
+            assert close(gs.m[k], rs.m[k]) and close(gs.v[k], rs.v[k]), (M, k)
+            a, b = p.detach().cpu(), ref_params[k].detach()
+            err, tight = (a - b).abs(), 1e-5 * (1 + b.abs())
+            near_zero = rs.m[k].abs() <= (1 - opt.b1) * 1e-4 * scale
+            assert ((err <= tight) | (near_zero & (err <= tight + 2 * lr))).all(), (M, k)
