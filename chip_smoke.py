@@ -238,10 +238,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    2048 and 64 decode steps; dbrx-132b with its depth cut to 2 layers,
    batch 4, prompt 2048, 16 decode steps (capacity factor 1.25: tokens
    drop; kept per expert == min(routed, capacity), the kept share
-   printed). Each prints prefill tokens/s beside its bound (the run's
-   matmul and attention FLOPs over 989 TFLOP/s), decode step p50/p99 and
-   tokens/s beside its bound (the bytes of weights and live KV or SSM
-   state a step reads over 3.35 TB/s), and peak device memory; asserts
+   printed). Each prints prefill tokens/s beside its bound (the matmul
+   and attention FLOPs the prefill needs, ``repro_torch.launch.roofline``'s
+   count with the run's kept expert pairs, over 989 TFLOP/s), decode step
+   p50/p99 and tokens/s beside its bound (the bytes a step must move:
+   weights, the routed experts, live KV rows read and one written, SSM
+   and conv states read and written, over 3.35 TB/s), and peak device
+   memory; asserts
    finite logits and, but for dbrx (whose capacity differs between a
    decode call and the full forward by design), decode within 0.5 of the
    full forward (absolute; logits reach |6|). (d) One prefill and 8 decode
@@ -269,8 +272,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    init and one random batch of 8 x 2048 repeated: smollm-360m and
    mamba2-370m at full depth, qwen2.5-14b cut to 4 of its 48 layers
    (its 8 microbatches); 2 warm-up and 5 timed steps: step p50 and
-   tokens/s beside the FLOP bound (3 x the forward's matmul and attention
-   FLOPs, the LM head on every position, no recompute, over 989 TFLOP/s),
+   tokens/s beside the FLOP bound (roofline's count: 3 x the forward's
+   matmul and attention FLOPs, the LM head on every position, no
+   recompute, over 989 TFLOP/s),
    the update's CUDA-event time beside its byte bound (params, grads, m
    and v read, params, m and v written, over 3.35 TB/s), peak memory
    (smollm's also for one loss + backward on 1 x 2048 with remat on and
@@ -285,6 +289,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``src/repro_torch/{models,optim}/`` or ``launch/train.py``. (f) The top
    device kernels of one qwen train step. The record goes to
    ``chiprun_out/lm/phase18.json``.
+19. the LM dry run (``repro_torch.launch.dryrun``, ``repro_torch.
+   distributed.sharding``: plain PyTorch, no kernel of their own), device
+   (0, 0)'s share of each LM cell on the 16x16 grid. (a) One reduced
+   config a family (qwen2.5-14b, dbrx-132b, mamba2-370m, jamba, paligemma,
+   musicgen) on a 2x2 grid, float32, TF32 off, from the same seeded
+   weights: the share's outputs (logits and caches; loss and gradients in
+   train) on the card against the CPU's for train, prefill, decode and the
+   sequence-sharded decode, within 1e-4 x (1 + max |CPU's|). (b) Every one
+   of the 32 cells (10 configs x train_4k, prefill_32k, decode_32k;
+   long_500k for mamba2-370m and jamba) and qwen2.5-14b decode_32k with
+   serving sharding: the device's at-rest state at real size, its share
+   at 1 and 2 periods timed after a warm-up call of each (CUDA-graph
+   replays where a period's warm-up takes under 500 ms, the host's
+   enqueue pacing much of it; else eager) and extrapolated, the AdamW update of its
+   blocks (train), every output and gradient finite; one line a record
+   with its bound (what the share needs: roofline's count), state, peak,
+   fit, collective bytes and ``nvidia-smi``'s name and power limit. (c)
+   smollm-360m's decode_32k and train_4k (timed by replay) and
+   qwen2.5-14b's prefill_32k (timed eagerly on purpose) also at full
+   depth, within 10% of the extrapolation. (d) One period's share of three cells under
+   phase 16's sync census: no sync charged to ``launch/dryrun.py`` or
+   ``distributed/sharding.py``. The records go to ``chiprun_out/dryrun/``
+   (``phase19.json`` beside the cells').
 
 The last three lines of standard output are the kernels JSON line, the
 ``nvidia-smi`` name/power-limit line, and the ``{"ok": true, ...}`` line.
@@ -404,6 +431,29 @@ LM_TRAIN_GRADS = ("dbrx-132b", 8, 2048, 1)                     # (d)
 # within LM_TRAIN_TOL_PARAM x (1 + |ref|)
 LM_TRAIN_EPS_G = 1e-4
 LM_TRAIN_TOL_PARAM = 1e-5
+# phase 19, the LM dry run on the 16x16 grid
+LM_DRY_SERVING = (("qwen2.5-14b", "decode_32k"),)   # also with --serving-sharding
+# (c) at full depth: two shares timed by CUDA-graph replay, and one timed
+# eagerly although it would be replayed (LM_DRY_EAGER), to hold that method
+# to full depth as well: the cells that are eager by GRAPH_MS (dbrx and
+# jamba train, jamba prefill) cost 1-3 min a call at full depth, or do not
+# fit (jamba's gathered weights alone are ~50 GB at full depth)
+LM_DRY_FULL = (("smollm-360m", "decode_32k"), ("smollm-360m", "train_4k"),
+               ("qwen2.5-14b", "prefill_32k"))
+LM_DRY_EAGER = (("qwen2.5-14b", "prefill_32k"),)
+LM_DRY_FULL_TOL = 0.10    # (c): full depth within 10% of the extrapolation
+LM_DRY_REPEATS = 2        # timed batches of each share, the median kept
+# cut for phase 19's time: one timed batch (one call a depth, after its
+# warm-up) of the longest share, ~9 and ~17 s a call
+LM_DRY_ONE_BATCH = (("jamba-1.5-large-398b", "train_4k"),)
+# (a) one reduced config a family on the 2x2 grid, card against CPU
+LM_DRY_FAMILIES = ("qwen2.5-14b", "dbrx-132b", "mamba2-370m", "jamba-1.5-large-398b",
+                   "paligemma-3b", "musicgen-large")
+LM_DRY_SMALL = ((16, 4, "train"), (16, 4, "prefill"), (16, 4, "decode"), (16, 1, "decode"))
+LM_DRY_TOL = 1e-4         # (a): max |card - CPU| <= tol x (1 + max |CPU|), float32
+# (d) one period's share under the sync census
+LM_DRY_CENSUS = (("smollm-360m", "train_4k"), ("dbrx-132b", "decode_32k"),
+                 ("jamba-1.5-large-398b", "long_500k"))
 
 
 def fail(msg: str) -> None:
@@ -1201,6 +1251,9 @@ def main() -> None:
 
     # -- 18. LM training: train steps, accumulation, remat, AdamW ------------
     lm_train_phase(torch, smi_line)
+
+    # -- 19. the LM dry run: one device's share of every LM cell ---------------
+    lm_dryrun_phase(torch, smi_line)
 
     e5, b6p = b5_rows["frontier"], b6_rows["path"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
@@ -3162,57 +3215,6 @@ class MoETap:
             h.remove()
 
 
-def lm_prefill_flops(cfg, b: int, s: int, kept_pairs=None) -> float:
-    """The matmul and attention FLOPs one prefill of ``b`` prompts of ``s``
-    tokens needs: the projections, causal attention (each query against
-    its own prefix: QK and PV), the SSD recurrence (a state update and a
-    read-out per token, 4·h·n·p), the MLPs, the routed experts' FFNs on the
-    (token, slot) pairs kept (``kept_pairs[i]`` for the i-th MoE layer)
-    plus the router, and the LM head on the last position."""
-    T, d = b * s, cfg.d_model
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    flops, moe_i = 0.0, 0
-    for i in range(cfg.n_layers):
-        if cfg.layer_kind(i) == "attn":
-            flops += 2 * T * d * (H + 2 * KV) * hd + 2 * T * H * hd * d
-            flops += 2 * 2 * b * H * hd * s * (s + 1) / 2
-        else:
-            di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-            flops += 2 * T * d * (2 * di + 2 * n + h) + 2 * T * di * d
-            flops += 4 * T * h * n * p
-        if cfg.mlp_kind(i) == "moe":
-            flops += 2 * T * d * cfg.n_experts + 2 * 3 * d * cfg.d_ff * kept_pairs[moe_i]
-            moe_i += 1
-        elif cfg.d_ff:
-            flops += 2 * T * 3 * d * cfg.d_ff
-    return flops + 2 * b * d * cfg.vocab_size
-
-
-def lm_decode_bytes(model, batch: int, cache_len: float, experts_read=None) -> float:
-    """The bytes one decode step reads: every weight but the embedding
-    table (of which ``batch`` rows), only the routed experts of a MoE layer
-    (``experts_read[i]`` of the i-th), the live KV (``cache_len`` + 1
-    positions) or the SSM and conv states."""
-    cfg, item = model.cfg, model.dtype.itemsize
-    total, moe_i = batch * cfg.d_model * item, 0
-    for name, p in model.named_parameters():
-        if name.startswith("embed."):
-            continue
-        if ".moe.w_" in name:
-            total += p.numel() * p.element_size() * experts_read[moe_i // 3] / cfg.n_experts
-            moe_i += 1
-            continue
-        total += p.numel() * p.element_size()
-    for i in range(cfg.n_layers):
-        if cfg.layer_kind(i) == "attn":
-            total += 2 * batch * (cache_len + 1) * model.KV * cfg.head_dim * item
-        else:
-            sc = model.ssd_cfg
-            total += batch * sc.n_heads * sc.d_state * sc.head_dim * 4
-            total += batch * (sc.d_conv - 1) * (sc.d_inner + 2 * sc.d_state) * item
-    return total
-
-
 def lm_tokens(torch, cfg, b: int, s: int, seed: int, device):
     """``(b, s)`` token ids and the stub frontends' prefix embeddings, from
     a seeded generator on ``device`` (prefix positions count in ``s``)."""
@@ -3395,6 +3397,8 @@ def lm_serve_run(torch, cfg, b: int, prompt: int, n_decode: int, seed: int, dev,
                  smi: str, census: bool, trace: bool, cut: bool):
     """One bfloat16 serving run of phase 17 (c), with (d) and (e) when asked
     (``cut``: the config's depth was cut)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import roofline as rl
     from repro_torch.models.transformer import Model
 
     on_card = dev.type == "cuda"
@@ -3437,13 +3441,19 @@ def lm_serve_run(torch, cfg, b: int, prompt: int, n_decode: int, seed: int, dev,
         kept_share = sum(kept_pairs) / (n_moe * b * prompt * cfg.experts_per_token)
         for _module, r in routed[n_moe:]:
             experts_read.append(int(torch.unique(r.expert_idx[r.keep]).numel()))
-    flops = lm_prefill_flops(cfg, b, prompt, kept_pairs)
-    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    prefill_bound = max(flops / PEAK_BF16_FLOPS, weight_bytes / PEAK_BYTES)
+    # the bounds: roofline's count of what the step needs, at the config's
+    # own widths, with the kept pairs and the experts read that this run routed
+    w = rl.logical_widths(cfg)
+    weights = {k: p.numel() * p.element_size() for k, p in model.named_parameters()}
+    flops = rl.step_flops(cfg, ShapeConfig("prefill", prompt, b, "prefill"), w, b, 1,
+                          cfg.n_layers, needed=True, pairs=kept_pairs or None)[0]
+    prefill_bound = max(flops / PEAK_BF16_FLOPS,
+                        rl.step_bytes(cfg, "prefill", w, weights, b, prompt) / PEAK_BYTES)
     step_bounds = []
     for i in range(n_decode):
         reads = (experts_read[i * n_moe:(i + 1) * n_moe] if n_moe else None)
-        step_bounds.append(lm_decode_bytes(model, b, prompt + i, reads) / PEAK_BYTES)
+        step_bounds.append(rl.step_bytes(cfg, "decode", w, weights, b, prompt + i,
+                                         experts_read=reads) / PEAK_BYTES)
     step_ms = sorted(t * 1e3 for t in step_s)
     p50 = step_ms[len(step_ms) // 2]
     p99 = step_ms[min(len(step_ms) - 1, int(round(0.99 * (len(step_ms) - 1))))]
@@ -3527,15 +3537,6 @@ def lm_census(torch, run, on_card: bool, sync, watched, tag: str, what: str):
     return {"syncs": total, "sites": len(census.sites), "unattributed": census.unattributed}
 
 # -- phase 18: LM training ------------------------------------------------------
-
-
-def lm_train_flops(cfg, b: int, s: int) -> float:
-    """3 x the forward FLOPs of a train step on ``b`` sequences of ``s``
-    tokens: :func:`lm_prefill_flops` with the LM head on every position the
-    loss reads (``s - 1``), without the remat's recompute. Dense configs
-    only (no routed experts)."""
-    head = 2 * b * cfg.d_model * cfg.vocab_size
-    return 3 * (lm_prefill_flops(cfg, b, s) - head + head * (s - 1))
 
 
 def lm_update_bytes(model, state, grads) -> int:
@@ -3738,6 +3739,8 @@ def lm_train_run(torch, cfg, b: int, s: int, seed: int, dev, smi: str, cut: bool
     fixed batch."""
     import dataclasses
 
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import roofline as rl
     from repro_torch.launch.train import loss_and_grads, make_train_step
     from repro_torch.models.transformer import Model
     from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_adamw
@@ -3776,7 +3779,8 @@ def lm_train_run(torch, cfg, b: int, s: int, seed: int, dev, smi: str, cut: bool
         fail(f"lm-train (c) {cfg.name}: losses {losses} are not finite and falling")
     step_ms = sorted(t * 1e3 for t in times[LM_TRAIN_WARMUP:])
     p50 = step_ms[len(step_ms) // 2]
-    flops = lm_train_flops(cfg, b, s)
+    flops = rl.step_flops(cfg, ShapeConfig("train", s, b, "train"), rl.logical_widths(cfg),
+                          b, 1, cfg.n_layers, needed=True)[0]
     bound_ms = flops / PEAK_BF16_FLOPS * 1e3
     # the update alone: AdamW over one step's gradients, CUDA events
     _loss, grads = loss_and_grads(model, batch, cfg.microbatches)
@@ -3898,6 +3902,131 @@ def lm_grads_run(torch, cfg, b: int, s: int, seed: int, dev, smi: str):
     if on_card:
         torch.cuda.empty_cache()
     return row
+
+
+# -- phase 19: the LM dry run ---------------------------------------------------
+
+
+def lm_dryrun_phase(torch, smi: str, device=None, cells=None, checks=LM_DRY_SMALL,
+                    census=LM_DRY_CENSUS, grid=None, out_dir=None,
+                    repeats: int = LM_DRY_REPEATS):
+    """Phase 19: the LM dry run (``repro_torch.launch.dryrun``), device (0,
+    0)'s share of each LM cell on the 16x16 grid. (a) One reduced config
+    of each family on the 2x2 grid, 1 period, float32 with TF32 off, from
+    the same seeded weights: the share's outputs (logits, caches; loss and
+    gradients in train) on the card against the CPU's within
+    ``LM_DRY_TOL``. (b) ``run_cell`` of every (arch, shape) cell and of
+    ``LM_DRY_SERVING`` with serving sharding: the at-rest state at real
+    size, the 1- and 2-period shares timed and extrapolated, the update
+    (train), every output finite; one line a record with its bound,
+    ``nvidia-smi``'s name and power limit. (c) The ``LM_DRY_FULL`` cells
+    also at full depth, within ``LM_DRY_FULL_TOL`` of the extrapolation.
+    (d) One period's share of each ``census`` cell under phase 16's sync
+    census: no sync charged to ``launch/dryrun.py`` or
+    ``distributed/sharding.py``. ``device="cpu"`` with small ``cells``
+    ((config, shape, serving) triples), ``census`` and a ``grid``
+    rehearses on the CPU (no time is measured there)."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun as dr
+
+    on_card = device is None
+    dev = torch.device("cuda" if on_card else device)
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    out_dir = Path(out_dir) if out_dir is not None else ROOT / "chiprun_out" / "dryrun"
+    g22 = ((2, 2), ("data", "model"))
+    record = {"device": smi, "card_vs_cpu": [], "cells": [], "census": []}
+
+    # -- (a) the reduced configs' shares, card against CPU ---------------------
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst = 0.0
+    try:
+        for seed, arch in enumerate(LM_DRY_FAMILIES):
+            for s, b, kind in checks:
+                cfg, shape, grid2, ss = dr.cell_config(
+                    get_config(arch).reduced(), ShapeConfig(f"{kind}-b{b}", s, b, kind), grid=g22)
+                host = dr.LMShare(cfg, shape, grid2, ss, cfg.period,
+                                  torch.Generator().manual_seed(seed))
+                err = dr.max_scaled_err(host.to(dev).run(), host.run())
+                worst = max(worst, err)
+                record["card_vs_cpu"].append({"arch": cfg.name, "shape": shape.name, "err": err})
+                if not err <= LM_DRY_TOL:
+                    fail(f"lm-dryrun (a) {cfg.name} {shape.name}: the share on {dev} differs "
+                         f"from the CPU's by {err} x (1 + |CPU|) > {LM_DRY_TOL}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    print(f"[lm-dryrun] (a) {len(record['card_vs_cpu'])} reduced shares (6 families x "
+          f"train, prefill, decode, long decode) on the 2x2 grid, float32: {dev} vs CPU "
+          f"max |err| {worst:.3e} x (1 + |CPU|) <= {LM_DRY_TOL}", flush=True)
+
+    # -- (b), (c) every cell ----------------------------------------------------
+    if cells is None:
+        cells = [(a, s, False) for a, s in dr.all_cells(False)]
+        cells += [(a, s, True) for a, s in LM_DRY_SERVING]
+    for arch, shape_name, serving in cells:
+        name = arch if isinstance(arch, str) else arch.name
+        sname = shape_name if isinstance(shape_name, str) else shape_name.name
+        full = (name, sname) in LM_DRY_FULL
+        r = dr.run_cell(arch, shape_name, False, out_dir=out_dir, force=True,
+                        serving_sharding=serving, device=dev,
+                        repeats=1 if (name, sname) in LM_DRY_ONE_BATCH else repeats,
+                        full_depth=full, grid=grid,
+                        graph_ms=0.0 if (name, sname) in LM_DRY_EAGER else dr.GRAPH_MS)
+        if not (r["ok"] and r["outputs_finite"]):
+            fail(f"lm-dryrun (b) {r['arch']} {r['shape']}: ok {r['ok']} "
+                 f"({r.get('error')}), outputs finite {r['outputs_finite']}")
+        wire = ", ".join(f"{k} {v / 2**30:.3f}" for k, v in
+                         r["collectives_by_kind_extrap"].items() if v)
+        ms, warm = r["device_ms_per_period"], r["warmup_ms_per_period"]
+        upd = (f"; update {r['update_ms']} ms (bound {r['update_bound_ms']:.4f})"
+               if r["kind"] == "train" else "")
+        share = (f"{r['bound_ms'] / r['device_ms_extrap']:.4f}" if r["device_ms_extrap"]
+                 else "n/a")
+        print(f"[lm-dryrun] (b) {r['arch']} {r['shape']} {r['mesh']}: device_ms_extrap "
+              f"{r['device_ms_extrap']} ({r['timed']}, median of {r['repeats']} batches: "
+              f"1 period {ms['1']}, 2 periods "
+              f"{ms['2']}; warm-up calls {warm['1']}, {warm['2']}) beside "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; {share} of it reached, "
+              f"{r['device_needed_flops_extrap']:.4e} FLOPs needed, "
+              f"{r['share_bytes']:.4e} bytes){upd}; state at rest "
+              f"{r['device_state_bytes'] / 2**30:.3f} GiB allocated (per chip "
+              f"{r['state_bytes_per_chip'] / 2**30:.3f}), share peak "
+              f"{(r['share_peak_bytes'] or 0) / 2**30:.3f} GiB, fits_hbm {r['fits_hbm']}; "
+              f"wire GiB/step: {wire or 'none'}; {r['run_s']} s; {smi}", flush=True)
+        if full and on_card:
+            gap = abs(r["device_ms_full"] - r["device_ms_extrap"]) / r["device_ms_full"]
+            warm = (f"eager warm-up {r['warmup_ms_full']} ms" if r["warmup_ms_full"]
+                    else "warmed up on the capture's side stream")
+            print(f"[lm-dryrun] (c) {r['arch']} {r['shape']} at full depth "
+                  f"{r['device_ms_full']} ms vs extrapolated {r['device_ms_extrap']} ms "
+                  f"({r['timed']}): {gap:.4f} apart; {warm}", flush=True)
+            if gap > LM_DRY_FULL_TOL:
+                fail(f"lm-dryrun (c) {r['arch']} {r['shape']}: full depth "
+                     f"{r['device_ms_full']} ms is {gap:.3f} from the extrapolation")
+        record["cells"].append(r)
+
+    # -- (d) the shares under the sync census -----------------------------------
+    watched = ("src/repro_torch/launch/dryrun.py", "src/repro_torch/distributed/sharding.py")
+    for arch, shape_name in census:
+        cfg, shape, grid_c, ss = dr.cell_config(arch, shape_name, grid=grid)
+        share = dr.LMShare(cfg, shape, grid_c, ss, cfg.period,
+                           torch.Generator(device=dev).manual_seed(0))
+        share.run()
+        sync()
+        record["census"].append(lm_census(
+            torch, share.run, on_card, sync, watched,
+            f"lm-dryrun (d) {cfg.name} {shape.name}", "one period's share"))
+        del share
+    if on_card:
+        torch.cuda.empty_cache()
+    record["seconds"] = time.perf_counter() - t_phase
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "phase19.json", "w") as fh:
+        json.dump(record, fh, indent=1)
+    print(f"[lm-dryrun] phase 19: {record['seconds']:.3f} s, {len(record['cells'])} cells; "
+          f"record in {out_dir}", flush=True)
+    return record
 
 
 if __name__ == "__main__":

@@ -87,6 +87,11 @@ _LM_LAYERS = ((_TF, "Model._run_layers"), (_TF, "Model._embed_inputs"),
               (_LAYERS, "Embedding.forward"), (_LAYERS, "LMHead.forward"),
               ("repro_torch.models.ssd", "SSD.forward"),
               ("repro_torch.models.moe", "MoE.forward"))
+_LMDRY = "repro_torch.launch.dryrun"
+#: the dry run's timed shares run the same decoder through the share
+#: model's own embedding and MoE (modules) and inputs
+_LM_SHARE = ((_LMDRY, "ShareModel._embed_inputs"), (_LMDRY, "ShareEmbedding.forward"),
+             (_LMDRY, "ShareMoE.forward"))
 
 #: the JAX package's call-graph roots -> the port's counterparts, or the
 #: reason there is none
@@ -128,9 +133,9 @@ DISPATCH_ROOTS: Dict[FuncKey, Union[Tuple[FuncKey, ...], str]] = {
         (_MESH, "make_sharded_round.round_fn"),
         (_MESH, "make_sharded_frontier_round.round_fn")),
     ("repro.launch.dryrun", "lower_cell.prefill_step"):
-        ((_TF, "Model.prefill"),) + _LM_LAYERS,
+        ((_TF, "Model.prefill"),) + _LM_LAYERS + _LM_SHARE + ((_LMDRY, "prefill_share"),),
     ("repro.launch.dryrun", "lower_cell.serve_step"):
-        ((_TF, "Model.decode_step"),) + _LM_LAYERS,
+        ((_TF, "Model.decode_step"),) + _LM_LAYERS + _LM_SHARE + ((_LMDRY, "decode_share"),),
 }
 
 

@@ -557,13 +557,10 @@ class _Cell:
                 "operations" if t_ops >= t_bytes else "bytes", minmax + dots)
 
 
-def _time_ms(fn, dev: torch.device, repeats: int) -> Optional[float]:
-    """CUDA-event mean of ``fn`` over ``repeats`` calls after one warm-up
-    call; None off the card (not measured)."""
-    fn()
-    if dev.type != "cuda":
-        return None
-    torch.cuda.synchronize(dev)
+def _event_ms(fn, repeats: int) -> float:
+    """CUDA-event mean of ``fn`` over ``repeats`` back-to-back calls on
+    the current device, from an idle device."""
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -572,6 +569,16 @@ def _time_ms(fn, dev: torch.device, repeats: int) -> Optional[float]:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / repeats
+
+
+def _time_ms(fn, dev: torch.device, repeats: int) -> Optional[float]:
+    """:func:`_event_ms` of ``fn`` after one warm-up call; None off the
+    card (not measured)."""
+    fn()
+    if dev.type != "cuda":
+        return None
+    torch.cuda.synchronize(dev)
+    return _event_ms(fn, repeats)
 
 
 def run_rpq_cell(name: str, n_slots: int, query: str, v_chunk: int,

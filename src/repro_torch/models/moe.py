@@ -11,6 +11,12 @@ the out-of-bounds row explicit: a dropped (token, slot) is sent to row
 off (the reference's ``.at[].add(mode="drop")``), and the gather back
 reads a zero row there (its ``.get(mode="fill", fill_value=0)``). Every
 index stays on the device: no host sync.
+
+``local_experts=E_l`` runs one expert-parallel shard: the router over all
+E experts and the weights of experts ``[0, E_l)`` only. Each group is
+routed at the whole layer's capacity, and a slot routed to an expert of
+another shard is dropped here as a slot past capacity is (that shard
+computes it).
 """
 from __future__ import annotations
 
@@ -64,7 +70,7 @@ def route(params: Params, xt: torch.Tensor, top_k: int,
     flat (T*k, E) order, so a different slot order would drop a different
     token at capacity."""
     T = xt.shape[-2]
-    E = params["w_gate"].shape[0]
+    E = params["router"].shape[-1]
     logits = xt.float() @ params["router"]                    # (..., T, E)
     probs = torch.softmax(logits, dim=-1)
     order = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -89,21 +95,29 @@ def apply_moe(
     top_k: int,
     capacity_factor: float = 1.25,
     n_groups: int = 1,
+    local_experts: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (output, aux_loss). Tokens beyond expert capacity are
     dropped (residual passthrough).
 
     n_groups: GShard-style dispatch groups. Capacity is enforced PER GROUP;
-    the groups are a leading batch dimension (the reference's ``vmap``)."""
+    the groups are a leading batch dimension (the reference's ``vmap``).
+    local_experts: the experts ``[0, E_l)`` whose weights ``params`` holds
+    (module docstring); None means all of the router's."""
+    E = params["router"].shape[-1]
+    E_l = E if local_experts is None else local_experts
+    if params["w_gate"].shape[0] != E_l or not 0 < E_l <= E:
+        raise ValueError(f"expert weights for {params['w_gate'].shape[0]} experts, "
+                         f"expected {E_l} of the router's {E}")
     b, s, d = x.shape
     T_all = b * s
     if n_groups > 1:
         if T_all % n_groups:
             raise ValueError(f"{T_all} tokens do not split into {n_groups} groups")
         yg, aux = _moe_group(params, x.reshape(n_groups, T_all // n_groups, d),
-                             top_k, capacity_factor)
+                             top_k, capacity_factor, E_l)
         return yg.reshape(b, s, d), torch.mean(aux)
-    y, aux = _moe_group(params, x.reshape(T_all, d), top_k, capacity_factor)
+    y, aux = _moe_group(params, x.reshape(T_all, d), top_k, capacity_factor, E_l)
     return y.reshape(b, s, d), aux
 
 
@@ -112,23 +126,27 @@ def _moe_group(
     xt: torch.Tensor,             # (..., T, d) tokens of one or more groups
     top_k: int,
     capacity_factor: float,
+    E_l: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     *lead, T, d = xt.shape
     G = math.prod(lead)
-    E = params["w_gate"].shape[0]
+    E = params["router"].shape[-1]
     r = route(params, xt, top_k, capacity_factor)
     C = r.capacity
+    keep, e_flat = r.keep, r.expert_idx.reshape(G, T * top_k)
+    if E_l < E:   # another shard's expert: dropped, to expert 0's row C
+        keep = keep & (r.expert_idx < E_l)
+        e_flat = torch.where(e_flat < E_l, e_flat, 0)
 
-    # scatter tokens into (G, E, C+1, d) buffers; row C takes the drops
-    p_flat = torch.where(r.keep, r.pos_in_expert, C).reshape(G, T * top_k)
-    e_flat = r.expert_idx.reshape(G, T * top_k)
+    # scatter tokens into (G, E_l, C+1, d) buffers; row C takes the drops
+    p_flat = torch.where(keep, r.pos_in_expert, C).reshape(G, T * top_k)
     g_flat = torch.arange(G, device=xt.device)[:, None]
-    rows = ((g_flat * E + e_flat) * (C + 1) + p_flat).reshape(-1)
+    rows = ((g_flat * E_l + e_flat) * (C + 1) + p_flat).reshape(-1)
     src = torch.repeat_interleave(xt.reshape(G, T, d), top_k, dim=1,
                                   output_size=T * top_k).reshape(-1, d)
-    buf = torch.zeros((G * E * (C + 1), d), dtype=xt.dtype, device=xt.device)
+    buf = torch.zeros((G * E_l * (C + 1), d), dtype=xt.dtype, device=xt.device)
     buf.index_add_(0, rows, src)
-    buf = buf.reshape(G, E, C + 1, d)[:, :, :C]
+    buf = buf.reshape(G, E_l, C + 1, d)[:, :, :C]
 
     # expert FFN: (E, C, d) x (E, d, f) batched matmuls
     h = F.silu(torch.einsum("gecd,edf->gecf", buf, params["w_gate"]))
@@ -136,10 +154,10 @@ def _moe_group(
     y_e = torch.einsum("gecf,efd->gecd", h, params["w_down"])  # (G, E, C, d)
 
     # gather back (a zero row at C) and combine with gates
-    y_e = F.pad(y_e, (0, 0, 0, 1)).reshape(G * E * (C + 1), d)
+    y_e = F.pad(y_e, (0, 0, 0, 1)).reshape(G * E_l * (C + 1), d)
     gathered = y_e[rows].reshape(G, T * top_k, d)
     gathered = gathered * (r.gate_vals.reshape(G, -1, 1).to(xt.dtype) *
-                           r.keep.reshape(G, -1, 1).to(xt.dtype))
+                           keep.reshape(G, -1, 1).to(xt.dtype))
     y = torch.sum(gathered.reshape(G, T, top_k, d), dim=2).reshape(xt.shape)
 
     # load-balancing aux loss (Switch): E * sum_e f_e * P_e

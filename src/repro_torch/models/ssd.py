@@ -30,6 +30,10 @@ class SSDConfig(NamedTuple):
     d_state: int
     d_conv: int = 4
     chunk: int = 256
+    norm_width: int = 0  # what the gated norm's sum of squares is divided
+                         # by: 0 is d_inner; a shard of the heads sets the
+                         # whole layer's (the other shards' squares summed
+                         # in by the caller, or zero)
 
 
 def init_ssd(gen: Optional[torch.Generator], cfg: SSDConfig, dtype=torch.bfloat16,
@@ -78,9 +82,16 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(out), new_state
 
 
-def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, eps=1e-6):
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, eps=1e-6,
+                width: int = 0):
+    """RMS norm of ``y * silu(z)`` over the last dimension; ``width`` set,
+    the sum of squares over it is divided by ``width`` (the whole layer's
+    d_inner where ``y`` holds one shard's heads)."""
     y = y * F.silu(z.float()).to(y.dtype)
-    var = torch.mean(torch.square(y.float()), -1, keepdim=True)
+    if width:
+        var = torch.sum(torch.square(y.float()), -1, keepdim=True) / width
+    else:
+        var = torch.mean(torch.square(y.float()), -1, keepdim=True)
     return (y.float() * torch.rsqrt(var + eps)).to(y.dtype) * scale
 
 
@@ -199,7 +210,7 @@ def apply_ssd(
         y, ssm_state = ssd_chunked(xs, dt, A, B, C, cfg.chunk, ssm_state)
     y = y + params["D"][None, None, :, None] * xs.float()
     y = y.to(x.dtype).reshape(b, s, cfg.d_inner)
-    y = _gated_norm(y, z, params["norm_scale"])
+    y = _gated_norm(y, z, params["norm_scale"], width=cfg.norm_width)
     out = y @ params["w_out"]
     return out, (conv_state, ssm_state)
 

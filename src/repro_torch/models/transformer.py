@@ -117,6 +117,11 @@ class Model(nn.Module):
     reference pads them; ``constrain(x, tag)`` is the layout hook a
     launcher may set (identity by default)."""
 
+    #: one chunk of the fused LM-head cross-entropy, ``(w, x, targets,
+    #: mask) -> summed loss``; None is this module's ``_xent_chunk`` (a
+    #: vocabulary-parallel head sets its own)
+    xent_chunk = None
+
     def __init__(self, cfg: ModelConfig, tp: int = 1,
                  constrain: Constrain = _identity_constrain,
                  device: DeviceLike = None):
@@ -263,7 +268,8 @@ class Model(nn.Module):
         x = self.final_norm(x, self.cfg.norm_eps)
         P = self.cfg.prefix_len if self.cfg.frontend != "none" else 0
         loss = _chunked_softmax_xent(self.lm_head["w"], x[:, P:-1], tokens[:, 1:],
-                                     chunk=max(self.cfg.q_chunk, 16))
+                                     chunk=max(self.cfg.q_chunk, 16),
+                                     chunk_fn=self.xent_chunk)
         if self.cfg.n_experts:
             loss = loss + 0.01 * aux
         return loss
@@ -312,11 +318,12 @@ class Model(nn.Module):
 
 
 def _chunked_softmax_xent(w: torch.Tensor, x: torch.Tensor, targets: torch.Tensor,
-                          chunk: int) -> torch.Tensor:
+                          chunk: int, chunk_fn=None) -> torch.Tensor:
     """Fused LM-head + cross-entropy, chunked over sequence positions so the
     logits working set is (b, chunk, V) instead of (b, s, V). While
     autograd records, each chunk is checkpointed: without it backward keeps
-    every chunk's logits, and the (b, s, V) tensor comes back."""
+    every chunk's logits, and the (b, s, V) tensor comes back. ``chunk_fn``
+    computes one chunk's summed loss (default ``_xent_chunk``)."""
     b, s, d = x.shape
     pad = (-s) % chunk
     if pad:
@@ -324,11 +331,12 @@ def _chunked_softmax_xent(w: torch.Tensor, x: torch.Tensor, targets: torch.Tenso
         targets = F.pad(targets, (0, pad))
     mask = torch.arange(x.shape[1], device=x.device) < s
     remat = torch.is_grad_enabled()
+    chunk_fn = chunk_fn or _xent_chunk
     totals = []
     for c0 in range(0, x.shape[1], chunk):
         args = (w, x[:, c0:c0 + chunk], targets[:, c0:c0 + chunk], mask[c0:c0 + chunk])
-        totals.append(checkpoint(_xent_chunk, *args, use_reentrant=False) if remat
-                      else _xent_chunk(*args))
+        totals.append(checkpoint(chunk_fn, *args, use_reentrant=False) if remat
+                      else chunk_fn(*args))
     return torch.sum(torch.stack(totals)) / (b * s)
 
 

@@ -6,7 +6,8 @@ single-query closure); the service's checkpoints on the card (restored on
 the card with every executor tensor there, and across card and CPU) and
 the supervised service's crash-recovery identity on the card; the mesh
 executor over ``["cuda:0"] * 4`` against the local executor on the card;
-the LM serving path and one LM train step on the card against the CPU.
+the LM serving path, one LM train step and the LM dry run's device
+shares on the card against the CPU.
 
 Marked ``gpu``; each skips (from the ``cuda`` fixture, never at import or
 collection) where there is no card. On the card:
@@ -982,3 +983,29 @@ def test_lm_train_step_on_card_equals_cpu(cuda, arch):
             err, tight = (a - b).abs(), 1e-5 * (1 + b.abs())
             near_zero = rs.m[k].abs() <= (1 - opt.b1) * 1e-4 * scale
             assert ((err <= tight) | (near_zero & (err <= tight + 2 * lr))).all(), (M, k)
+
+
+@pytest.mark.parametrize("kind,batch", [("train", 4), ("prefill", 4), ("decode", 4),
+                                        ("decode", 1)], ids=["train", "prefill", "decode",
+                                                             "long-decode"])
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "dbrx-132b", "mamba2-370m",
+                                  "jamba-1.5-large-398b", "paligemma-3b", "musicgen-large"])
+def test_lm_dryrun_share_on_card_equals_cpu(cuda, arch, kind, batch):
+    """The LM dry run's share of device (0, 0) on a 2x2 grid (one reduced
+    config a family, 1 and 2 periods, float32, the same seeded weights and
+    inputs): its logits and caches, or its loss and gradients, on the card
+    within 1e-4 x (1 + max |CPU's|) of the CPU's; batch 1 is the
+    sequence-sharded decode."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun as dr
+
+    assert not torch.backends.cuda.matmul.allow_tf32   # IEEE float32 matmuls
+    cfg, shape, grid, ss = dr.cell_config(get_config(arch).reduced(),
+                                          ShapeConfig(kind, 16, batch, kind),
+                                          grid=((2, 2), ("data", "model")))
+    for n_periods in (1, 2):
+        host = dr.LMShare(cfg, shape, grid, ss, n_periods * cfg.period,
+                          torch.Generator().manual_seed(n_periods))
+        card = host.to(cuda)
+        assert card.model.device.type == "cuda"
+        assert dr.max_scaled_err(card.run(), host.run()) <= 1e-4, n_periods
