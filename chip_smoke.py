@@ -312,6 +312,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    phase 16's sync census: no sync charged to ``launch/dryrun.py`` or
    ``distributed/sharding.py``. The records go to ``chiprun_out/dryrun/``
    (``phase19.json`` beside the cells').
+20. live query churn (benchmarks/fig13_query_churn.py's protocol) through
+   the service in phase 4's configuration and on phase 4's stream, cut at
+   its thirds: at 1/3 three Table-2 queries under new names (Q4, Q6, Q9)
+   and a simple-path lane of Q2's conflict-free DFA register, growing
+   ``q_cap`` 13 -> 16 -> 20 and re-padding the (Q, 2048, 2048, 4) dist; at
+   2/3 Q5 and Q10 (and their reference engines) retire and Q7 registers
+   under a new name into the first freed lane. Each late lane's oracle is
+   ``repro_torch.core.engine.make_churn_oracle`` built on the card just
+   before its registration. Asserts every surviving query's results,
+   per-event result log and deletion invalidations, and Q3's simple
+   fallback (time and log), equal phase 4's; each registration's initial
+   answers equal its oracle's seed, and each late lane's per-event result
+   log, invalidations and results equal its oracle's, fed the rest of the
+   stream one sgt at a time and expired at the service's slide
+   boundaries; the reclaimed lane is the freed one; B1 launched once per
+   closure round of the churned group (its ingests and seeding closures;
+   the oracles' launches apart). Prints each registration's host-clock ms
+   (re-pad + seeding closure, synchronised), the churned run's sgts/s
+   beside phase 4's and peak device memory across the growth, with
+   ``nvidia-smi``'s name and power limit. Then runs ``main([])`` of
+   examples/{quickstart,streaming_service,distributed_rpq}_torch.py on
+   the card.
 
 The last three lines of standard output are the kernels JSON line, the
 ``nvidia-smi`` name/power-limit line, and the ``{"ok": true, ...}`` line.
@@ -395,6 +417,17 @@ DRYRUN_MODES = ("baseline", "mxu", "ring", "batched", "batched-mxu_bucket",
 DRYRUN_REPEATS = 3        # phase 15: timed shares after the warm-up
 CENSUS_INSERTS = 256      # phase 16: the first insert sgts of phases 4's and 8's streams
 SYNC_WARNING = "called a synchronizing CUDA operation"   # sync debug mode's text
+# phase 20, live query churn on phase 4's configuration (13 lanes): at 1/3
+# of the stream three Table-2 queries under new names and one simple-path
+# lane of a conflict-free DFA register, growing q_cap to the next multiple
+# of 4 when no lane is free (13 -> 16 at the first, 16 -> 20 at the fourth);
+# at 2/3 two founding queries (and their reference twins) retire and one
+# more query registers into the first freed lane
+CHURN_LATE = {"late_Q4": ("Q4", "arbitrary"), "late_Q6": ("Q6", "arbitrary"),
+              "late_Q9": ("Q9", "arbitrary"), "late_Q2_simple": ("Q2", "simple")}
+CHURN_Q_CAPS = (13, 16, 16, 16, 20)   # q_cap before and after each late registration
+CHURN_RETIRE = ("Q5", "Q10")
+CHURN_RECLAIM = ("late_Q7", "Q7")
 # phase 17, the LM serving path
 LM_REDUCED = dict(prompt=18, max_len=24, decode=6)    # (a) every reduced config
 LM_F32_ARCHS = ("smollm-360m", "mamba2-370m")           # (b) full width, float32
@@ -870,6 +903,7 @@ def main() -> None:
     ap.add_argument("--ell-inserts", type=int, default=2048,
                     help="insert sgts of the frontier + ELL stream (>= 256)")
     args = ap.parse_args()
+    t_script = time.perf_counter()
     if min(args.edges, args.ell_inserts) < 256:
         fail("--edges and --ell-inserts must be at least 256")
     if not all((ROOT / "src" / "repro_torch" / "csrc" / f"{k}.cu").is_file()
@@ -1255,6 +1289,11 @@ def main() -> None:
     # -- 19. the LM dry run: one device's share of every LM cell ---------------
     lm_dryrun_phase(torch, smi_line)
 
+    # -- 20. live query churn on phase 4's configuration, and the examples ----
+    churn20 = churn_phase(torch, queries, smi_line, p4, device=None, n_slots=n_slots)
+    print(f"[chip_smoke] phases 1-20: {time.perf_counter() - t_script:.3f} s of the "
+          "1200 s limit", flush=True)
+
     e5, b6p = b5_rows["frontier"], b6_rows["path"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
 
@@ -1287,7 +1326,10 @@ def main() -> None:
                                for k in ("lanes", "vertices", "sparse")}},
          # phase 15: the dry run's shares (ring, baseline, batched,
          # batched-frontier), each cell's share run 2 + repeats times
-         "dryrun": dry15["B1"]},
+         "dryrun": dry15["B1"],
+         # phase 20: the churned group's ingests and seeding closures, and
+         # the late lanes' oracles apart
+         "churn": {"launches": churn20["b1"], "oracle_launches": churn20["oracle_b1"]}},
         row("B2 maxmin_matmul", "maxmin", "src/repro/kernels/maxmin/maxmin.py:67",
             legacy["b2_launches"], lvl_rows["B2"]["max_abs_err"], lvl_rows["B2"]),
         # B3's numbers are on the main path's own operands (phase 10's last
@@ -4027,6 +4069,219 @@ def lm_dryrun_phase(torch, smi: str, device=None, cells=None, checks=LM_DRY_SMAL
     print(f"[lm-dryrun] phase 19: {record['seconds']:.3f} s, {len(record['cells'])} cells; "
           f"record in {out_dir}", flush=True)
     return record
+
+
+def slide_marks(tuples, slide: float):
+    """Per sgt, whether a service that has seen ``tuples`` from the start
+    expires at it (a slide boundary: ``PersistentQueryService.ingest``'s
+    rule)."""
+    nxt, marks = slide, []
+    for sgt in tuples:
+        marks.append(sgt.ts >= nxt)
+        while nxt <= sgt.ts:
+            nxt += slide
+    return marks
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` of this checkout as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def churn_phase(torch, queries, smi: str, p4, device=None, n_slots: int = 2048):
+    """Phase 20: live query churn (benchmarks/fig13_query_churn.py's
+    protocol) on phase 4's configuration and stream, through the service:
+    late registrations at 1/3 (``q_cap`` grows 13 -> 16 -> 20) and, at
+    2/3, two founding queries retired and one more registered into a freed
+    lane. Survivors are held to phase 4's run (``p4``, from
+    ``phase4_summary``) per event; each late lane to its own
+    ``make_churn_oracle`` built on the group's device just before the
+    registration, fed the rest of the stream one sgt at a time. Then the
+    three RPQ examples'
+    ``main``. ``device`` and ``n_slots`` let it rehearse on the CPU (where
+    no kernel launches). Returns B1's launches by the churned group."""
+    from repro_torch.core.automaton import compile_query
+    from repro_torch.core.engine import make_churn_oracle
+    from repro_torch.kernels.maxmin import maxmin as b1
+    from repro_torch.streaming.service import PersistentQueryService
+    from repro_torch.streaming.stream import Stream
+
+    on_card = device is None
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    window, slide = 20.0, 2.0
+    tuples = p4["tuples"]
+    marks = slide_marks(tuples, slide)
+    thirds = (len(tuples) // 3, 2 * len(tuples) // 3)
+    svc = register_phase4(PersistentQueryService(window=window, slide=slide,
+                                                 device=device), queries, n_slots)
+    rec = record(svc)
+    group = svc._group
+    kern = b1.maxmin_matmul_fused
+    counts = {"b1": 0, "rounds": 0}
+
+    def on_group(fn, *args, **kw):
+        """One call into the churned service: its host-clock seconds
+        (synchronised), B1's launches counted from 0 and the group's
+        closure rounds."""
+        sync()
+        kern.launches = 0
+        rounds0 = group.executor.rounds_total
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        sync()
+        dt = time.perf_counter() - t0
+        counts["b1"] += kern.launches
+        counts["rounds"] += group.executor.rounds_total - rounds0
+        return out, dt
+
+    late = {}
+
+    def register_late(name: str, expr: str, semantics: str, at: int, expect_lane=None):
+        oracle, seed = make_churn_oracle(compile_query(expr), group, window,
+                                         group.n_slots, path_semantics=semantics)
+        dist0 = tuple(group.batched_arrays.dist.shape)
+        initial, dt = on_group(svc.register, name, expr, engine="dense",
+                               path_semantics=semantics)
+        lane = group.lane_of(name)
+        if initial != seed:
+            fail(f"churn: {name}'s initial answers ({len(initial)} pairs) != its "
+                 f"fresh oracle's seed ({len(seed)})")
+        if expect_lane is not None and lane != expect_lane:
+            fail(f"churn: {name} took lane {lane}, not the freed lane {expect_lane}")
+        late[name] = dict(oracle=oracle, at=at, lane=lane, reg_ms=dt * 1e3,
+                          seed=len(seed))
+        print(f"[churn] register {name} ({expr}, {semantics}) at sgt {at}: lane "
+              f"{lane}, dist {dist0} -> {tuple(group.batched_arrays.dist.shape)}, "
+              f"{len(seed)} initial pairs == its fresh oracle's seed; reg_ms "
+              f"{dt * 1e3:.3f} (re-pad + seeding closure, host clock, synchronised); "
+              f"{smi}", flush=True)
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    fallbacks, wall = {}, 0.0
+    parts = (tuples[:thirds[0]], tuples[thirds[0]:thirds[1]], tuples[thirds[1]:])
+    for k, part in enumerate(parts):
+        report, dt = on_group(svc.ingest, Stream(part), record_latency=True)
+        wall += dt
+        fallbacks.update(report.fallbacks)
+        if k == 0:
+            caps = [group.q_cap]
+            for name, (base, sem) in CHURN_LATE.items():
+                register_late(name, queries[base], sem, thirds[0])
+                caps.append(group.q_cap)
+            # on the card Q3's simple lane falls back only near the end (its
+            # planted conflict): no lane is free before the growth
+            if on_card and tuple(caps) != CHURN_Q_CAPS:
+                fail(f"churn: q_cap went {caps}, not {CHURN_Q_CAPS}")
+        elif k == 1:
+            freed = sorted(group.lane_of(name) for name in CHURN_RETIRE)
+            for name in CHURN_RETIRE:
+                svc.deregister(name)
+                svc.deregister(f"{name}_ref")
+            name, base = CHURN_RECLAIM
+            register_late(name, queries[base], "arbitrary", thirds[1],
+                          expect_lane=freed[0])
+            if group.q_cap != caps[-1]:
+                fail(f"churn: q_cap {group.q_cap} after the reclaim, not {caps[-1]}")
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+
+    # survivors: unperturbed, per event, against phase 4's run
+    survivors = [n for n in p4["results"] if n not in CHURN_RETIRE
+                 and n.removesuffix("_ref") not in CHURN_RETIRE]
+    logs = dense_logs(group)
+    bad = [n for n in p4["logs"] if n in survivors and logs.get(n) != p4["logs"][n]]
+    if bad:
+        fail(f"churn: survivors' per-event result logs differ from phase 4's for {bad}")
+    kept = set(survivors)
+    if [e for e in rec["inv"] if e[1] in kept] != [e for e in p4["rec"]["inv"] if e[1] in kept]:
+        fail("churn: survivors' per-event deletion invalidations differ from phase 4's")
+    bad = [n for n in survivors if svc.results(n) != p4["results"][n]]
+    if bad:
+        fail(f"churn: survivors' results differ from phase 4's for {bad}")
+    if fallbacks != p4["fallbacks"]:
+        fail(f"churn: fallbacks {fallbacks} != phase 4's {p4['fallbacks']}")
+    for key in ("fallback_at", "fallback_log"):
+        if rec[key] != p4["rec"][key]:
+            fail(f"churn: the RSPQ fallback ({key}) differs from phase 4's")
+    if on_card and (counts["b1"] <= 0 or counts["b1"] != counts["rounds"]):
+        fail(f"churn: B1 launches {counts['b1']} != the churned group's closure "
+             f"rounds {counts['rounds']}")
+    sgts_s = len(tuples) / wall
+    lat = sorted(svc.stats["Q1"].latencies_us)
+    print(f"[churn] {len(survivors)} survivors' results, per-event result logs and "
+          f"invalidations == phase 4's; {sorted(fallbacks)} fell back at the same "
+          f"stream time {rec['fallback_at']}; q_cap {group.q_cap}, "
+          f"{group.n_queries} live lanes; B1 launches {counts['b1']} == closure "
+          f"rounds of the churned group (ingests and seeding closures)", flush=True)
+    print(f"[churn] {len(tuples)} sgts in {wall:.3f} s = {sgts_s:.3f} sgts/s, "
+          f"dispatch p50 {lat[len(lat) // 2] / 1e3:.3f} ms (phase 4, same run: "
+          f"{p4['sgts_s']:.3f} sgts/s, p50 {p4['p50'] / 1e3:.3f} ms); peak device "
+          f"memory across the growth {peak} bytes ({peak / 2**30:.3f} GiB); {smi}",
+          flush=True)
+
+    # late lanes: each against its fresh oracle, fed the rest of the stream
+    oracle_b1 = 0
+    for name, lt in late.items():
+        oracle, at = lt["oracle"], lt["at"]
+        inv = []
+        kern.launches = 0
+        t0 = time.perf_counter()
+        for i in range(at, len(tuples)):
+            sgt = tuples[i]
+            if marks[i]:
+                oracle.expire(sgt.ts)
+            if sgt.op == "+":
+                oracle.insert(sgt.src, sgt.dst, sgt.label, sgt.ts)
+            else:
+                out = oracle.delete(sgt.src, sgt.dst, sgt.label, sgt.ts)
+                if out:
+                    inv.append((sgt.ts, name, frozenset(out)))
+        sync()
+        dt = time.perf_counter() - t0
+        oracle_b1 += kern.launches
+        # past the seed (held equal above; the oracle logs it at its
+        # float32 clock, the group at its host mirror of that clock)
+        got = by_event(group.per_query_log[lt["lane"]][lt["seed"]:])
+        if got != by_event(oracle.result_log[lt["seed"]:]):
+            fail(f"churn: {name}'s per-event result log differs from its fresh oracle's")
+        if [e for e in rec["inv"] if e[1] == name] != inv:
+            fail(f"churn: {name}'s per-event invalidations differ from its fresh oracle's")
+        if svc.results(name) != oracle.results:
+            fail(f"churn: {name}'s results differ from its fresh oracle's")
+        print(f"[churn] {name} (lane {lt['lane']}) == its fresh oracle per event over "
+              f"sgts {at}..{len(tuples) - 1} ({len(tuples) - at} sgts, "
+              f"{len(oracle.results)} result pairs, {len(inv)} invalidating "
+              f"deletions; oracle {dt:.3f} s)", flush=True)
+        del lt["oracle"], oracle
+    ms = {name: round(lt["reg_ms"], 3) for name, lt in late.items()}
+    print(f"[churn] reg_ms {ms}; oracles' B1 launches {oracle_b1} (not counted "
+          "above)", flush=True)
+    del svc, group, late
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the RPQ examples, as a user runs them
+    argv = [] if on_card else ["--device", str(device)]
+    for name in ("quickstart_torch", "streaming_service_torch", "distributed_rpq_torch"):
+        t0 = time.perf_counter()
+        load_example(name).main(argv)
+        sync()
+        print(f"[churn] examples/{name}.py main({argv}): {time.perf_counter() - t0:.3f} s",
+              flush=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"[churn] phase 20: {seconds:.3f} s", flush=True)
+    return {"b1": counts["b1"], "oracle_b1": oracle_b1, "reg_ms": ms,
+            "sgts_s": sgts_s, "peak": peak, "seconds": seconds}
 
 
 if __name__ == "__main__":

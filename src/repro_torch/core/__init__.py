@@ -6,6 +6,7 @@ adjacency, dense or row-sparse dist, frontier off, on or auto):
     RAPQ / RSPQ                    -- paper-faithful pointer engines (oracle)
     BatchedDenseRPQEngine          -- Q queries, one shared-adjacency step
     DenseRPQEngine                 -- the Q=1 view
+    make_churn_oracle              -- fresh-engine oracle for a mid-stream registration
     resolve_backend                -- "cuda" (kernels B1/B2/B5/B6, default) | "plain"
                                       | "mxu_bucket" (BucketBackend: B3/B4, B5 on levels)
     carry_reference_state          -- load a JAX engine's exported state
@@ -21,7 +22,7 @@ from .contraction import (
     PlainBackend,
     resolve_backend,
 )
-from .engine import BatchedDenseRPQEngine, DenseRPQEngine, RegisteredQuery
+from .engine import BatchedDenseRPQEngine, DenseRPQEngine, RegisteredQuery, make_churn_oracle
 from .executor import Executor, LocalExecutor, QueryTables
 from .reference import RAPQ, RSPQ, SnapshotGraph
 
@@ -39,6 +40,7 @@ __all__ = [
     "BatchedDenseRPQEngine",
     "DenseRPQEngine",
     "RegisteredQuery",
+    "make_churn_oracle",
     "Executor",
     "LocalExecutor",
     "QueryTables",

@@ -954,3 +954,39 @@ class DenseRPQEngine(BatchedDenseRPQEngine):
 
     def index_size(self) -> Tuple[int, int]:
         return super().index_size(0)
+
+
+def make_churn_oracle(
+    dfa: DFA,
+    live_group: BatchedDenseRPQEngine,
+    window: float,
+    n_slots: int,
+    path_semantics: str = "arbitrary",
+    device: DeviceLike = None,
+) -> Tuple[DenseRPQEngine, Set[Pair]]:
+    """Fresh-engine oracle for a query registered mid-stream, the
+    construction the churn tests and ``chip_smoke.py``'s churn phase
+    assert against. Exact by this recipe, in this order:
+
+    1. sync the fresh engine's clock to the live group's ``now`` BEFORE
+       seeding (expire() on the empty engine), so the seed's emitted
+       baseline is "valid over the current window", the same baseline
+       :meth:`BatchedDenseRPQEngine.register_query` records;
+    2. feed the group's :meth:`~BatchedDenseRPQEngine.retained_edges` as
+       ONE batch: the closure fixpoint depends only on the final
+       adjacency, and one evaluation at the synced clock emits exactly the
+       pairs valid over the live window;
+    3. replay the tail per-tuple (``batch_size = 1``: no boundary skew).
+
+    ``device=None`` builds on the live group's device. Returns (oracle,
+    seed_results); seed_results must equal the live registration's
+    initial answer set."""
+    retained = live_group.retained_edges()
+    oracle = DenseRPQEngine(dfa, window, n_slots=n_slots,
+                            batch_size=max(1, len(retained)),
+                            path_semantics=path_semantics,
+                            device=live_group.device if device is None else device)
+    oracle.expire(live_group.host_now)
+    seed = oracle.insert_batch(retained) if retained else set()
+    oracle.batch_size = 1
+    return oracle, seed

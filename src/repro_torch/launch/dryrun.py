@@ -864,10 +864,11 @@ def max_scaled_err(got: Any, want: Any) -> float:
 #: in the depth (qwen2.5-14b's train_4k, timed eagerly at ~0.3-0.6 s a
 #: period, extrapolated 24% above its full depth): every share is then
 #: captured in a CUDA graph, after a call on a side stream that warms a
-#: deeper share up, and its replays are timed. Longer shares hide the
-#: enqueue and run eagerly, a deeper one after its own warm-up (their
-#: graphs' memory pools would also crowd the card: jamba's train share
-#: peaks at ~47 GiB). Either way each share is timed in ``repeats``
+#: deeper share up, and its replays are timed: the first replay (which
+#: uploads the graph) untimed, a second one sizing the batches. Longer
+#: shares hide the enqueue and run eagerly, a deeper one after its own
+#: warm-up (their graphs' memory pools would also crowd the card: jamba's
+#: train share peaks at ~47 GiB). Either way each share is timed in ``repeats``
 #: batches interleaved across the depths, a batch about TIMED_MS of calls
 #: (at least one), and the median batch is kept; the garbage collector is
 #: off meanwhile (as ``timeit`` keeps it).
@@ -920,6 +921,7 @@ def time_shares(fns: Mapping[int, Callable[[], Any]], dev: torch.device, repeats
         per = min(warm[1], warm[2] / 2)
         graphed = per < graph_ms
         timed: Dict[int, Callable[[], Any]] = {}
+        est: Dict[int, float] = {}
         for key, fn in fns.items():
             if graphed:
                 timed[key], out = _graphed(fn)
@@ -927,15 +929,17 @@ def time_shares(fns: Mapping[int, Callable[[], Any]], dev: torch.device, repeats
                     warm[key] = None
                     finite = _all_finite(out) and finite
                 del out
+                timed[key]()
+                est[key] = _event_ms(timed[key], 1)
             else:
                 if key not in warm:
                     finite = warm_up(key) and finite
                 timed[key] = fn
+                est[key] = warm[key]
         batches: Dict[int, List[float]] = {key: [] for key in fns}
         for _ in range(repeats):
             for key, times in batches.items():
-                est = warm[key] or per * key
-                n = min(max(1, math.ceil(TIMED_MS / max(est, 1e-3))), 100)
+                n = min(max(1, math.ceil(TIMED_MS / max(est[key], 1e-3))), 100)
                 times.append(_event_ms(timed[key], n))
         ms = {key: statistics.median(t) for key, t in batches.items()}
         return finite, ms, warm, "cuda_graph" if graphed else "eager"

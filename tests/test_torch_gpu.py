@@ -2,7 +2,9 @@
 versions on the card (B5 on float32 timestamps and on int32 levels), and
 the port's engine on the card against itself on the CPU (dense and
 row-sparse dist, the float and the bucket backend, and the legacy
-single-query closure); the service's checkpoints on the card (restored on
+single-query closure), and live query churn (registrations into a grown
+and a freed lane mid-stream, with ``make_churn_oracle``); the service's
+checkpoints on the card (restored on
 the card with every executor tensor there, and across card and CPU) and
 the supervised service's crash-recovery identity on the card; the mesh
 executor over ``["cuda:0"] * 4`` against the local executor on the card;
@@ -19,7 +21,7 @@ import pytest
 import torch
 
 from repro_torch.core.automaton import compile_query
-from repro_torch.core.engine import BatchedDenseRPQEngine, RegisteredQuery
+from repro_torch.core.engine import BatchedDenseRPQEngine, RegisteredQuery, make_churn_oracle
 from repro_torch.core.contraction import BucketBackend, resolve_backend
 from repro_torch.core.semiring import TransitionTable, closure
 from repro_torch.core.sparse_adj import ell_insert, pack_ell_dense
@@ -34,6 +36,7 @@ from repro_torch.kernels.rowsparse import rowsparse as b6
 from repro_torch.kernels.rowsparse.ref import rowsparse_gather_ref
 from repro_torch.streaming.generators import so_like, with_deletions
 
+from _torch_churn import DEREGISTER, LATE1, LATE2, churn_case
 from _torch_levels import PATTERNS as LEVEL_PATTERNS
 from _torch_levels import level_operands
 
@@ -205,6 +208,61 @@ def test_engine_on_card_equals_engine_on_cpu(cuda):
             assert gpu.delete(*sgt.as_edge()) == cpu.delete(*sgt.as_edge())
     assert torch.equal(gpu.batched_arrays.dist.cpu(), cpu.batched_arrays.dist)
     assert b1.maxmin_matmul_fused.launches - launches == gpu.total_rounds > 0
+
+
+
+def test_churn_on_card_equals_cpu(cuda):
+    """One stream of tests/test_query_churn.py's randomized churn scenario
+    (seed 0): a late registration, a deregistration and a registration
+    into the freed lane mid-stream, on the card and on the CPU; every
+    event's fresh results and invalidations, the registrations' initial
+    answers and the seeds of ``make_churn_oracle`` built on each device
+    equal, and B1 launched once per closure round of the card's group
+    (the card oracle's launches apart)."""
+    case = churn_case(0)
+    window = case["window"]
+    launched = 0
+
+    def on_card(method, *args):
+        """The card group's call, its B1 launches counted."""
+        nonlocal launched
+        before = b1.maxmin_matmul_fused.launches
+        out = getattr(gpu, method)(*args)
+        launched += b1.maxmin_matmul_fused.launches - before
+        return out
+
+    def group(device):
+        return BatchedDenseRPQEngine(
+            [RegisteredQuery(n, compile_query(e), w, s) for n, e, w, s in case["specs"]],
+            n_slots=16, batch_size=1, device=device)
+
+    def register(name, expr, semantics="arbitrary"):
+        seeds = [make_churn_oracle(compile_query(expr), g, window, 16,
+                                   path_semantics=semantics)[1] for g in (gpu, cpu)]
+        assert seeds[0] == seeds[1], name
+        spec = RegisteredQuery(name, compile_query(expr), window, semantics)
+        assert on_card("register_query", spec) == cpu.register_query(spec) == seeds[0]
+        assert gpu.lane_of(name) == cpu.lane_of(name)
+
+    gpu, cpu = group(cuda), group("cpu")
+    for i, (op, u, v, lab, ts) in enumerate(case["events"]):
+        if i == LATE1:
+            register("late1", *case["late1"])
+        elif i == DEREGISTER:
+            gpu.deregister_query("q1")
+            cpu.deregister_query("q1")
+        elif i == LATE2:
+            register("late2", case["late2"])
+            assert gpu.lane_of("late2") == 1
+        method = "insert" if op == "+" else "delete"
+        assert on_card(method, u, v, lab, ts) == getattr(cpu, method)(u, v, lab, ts), i
+        if i % 7 == 6:
+            on_card("expire", ts)
+            cpu.expire(ts)
+    assert gpu.per_query_results == cpu.per_query_results
+    assert gpu.q_cap == cpu.q_cap
+    assert torch.equal(gpu.batched_arrays.dist.cpu(), cpu.batched_arrays.dist)
+    assert launched == gpu.total_rounds > 0
 
 
 # tests/test_torch_kernels.py: B5_CASES (J, M, U, E)

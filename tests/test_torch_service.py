@@ -6,10 +6,7 @@ fallback, the async-decode FIFO, adaptive batching, the frontier and ELL
 options with their telemetry logs, the bucket backend, the executor
 names (the mesh builds on the CPU when asked), and that importing the
 port loads neither JAX nor ``repro``."""
-import subprocess
-import sys
 import tempfile
-from pathlib import Path
 
 import pytest
 import torch
@@ -22,7 +19,7 @@ from repro_torch.streaming.generators import so_like, with_deletions
 from repro_torch.streaming.service import PersistentQueryService
 from repro_torch.streaming.stream import Stream
 
-SRC = Path(__file__).resolve().parents[1] / "src"
+from _torch_imports import assert_loads_neither_jax_nor_repro
 
 REGS = [  # (name, expr, engine, path_semantics)
     ("notify", "a2q . c2a*", "dense", "arbitrary"),
@@ -165,19 +162,13 @@ def test_bucket_service_report_for_report(kw):
 
 
 def test_import_loads_neither_jax_nor_the_reference_package():
-    code = ("import sys, repro_torch, repro_torch.core, "
-            "repro_torch.streaming.service, repro_torch.kernels.maxmin.maxmin, "
-            "repro_torch.kernels.ell.ell, repro_torch.core.sparse_adj, "
-            "repro_torch.core.sparse_dist, "
-            "repro_torch.kernels.rowsparse.rowsparse, "
-            "repro_torch.kernels.bucket.bucket, repro_torch.kernels.bucket.ops, "
-            "repro_torch.checkpoint.ckpt, repro_torch.streaming.wal, "
-            "repro_torch.streaming.supervisor, repro_torch.distributed.fault, "
-            "repro_torch.distributed.executor; "
-            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-            "or m == 'repro' or m.startswith('repro.')]; "
-            "assert not bad, bad")
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, env={"PYTHONPATH": str(SRC),
-                                          "PATH": "/usr/bin:/bin"})
-    assert proc.returncode == 0, proc.stderr
+    assert_loads_neither_jax_nor_repro(
+        "import repro_torch, repro_torch.core, "
+        "repro_torch.streaming.service, repro_torch.kernels.maxmin.maxmin, "
+        "repro_torch.kernels.ell.ell, repro_torch.core.sparse_adj, "
+        "repro_torch.core.sparse_dist, "
+        "repro_torch.kernels.rowsparse.rowsparse, "
+        "repro_torch.kernels.bucket.bucket, repro_torch.kernels.bucket.ops, "
+        "repro_torch.checkpoint.ckpt, repro_torch.streaming.wal, "
+        "repro_torch.streaming.supervisor, repro_torch.distributed.fault, "
+        "repro_torch.distributed.executor")
