@@ -22,11 +22,12 @@ method is rooted by listing it. Reachability is the analyzer's
 (:class:`~repro_torch.analysis.analyzer.CallGraph`).
 
 Flagged inside reachable functions (functions of ``repro_torch/device.py``
-excepted: ``device_get`` is the explicit sync itself, flagged where it is
-called):
+excepted: ``device_get`` and ``device_put`` are the explicit syncs
+themselves, flagged where they are called):
 
 * ``.item()``, ``.tolist()``, ``.cpu()``, ``.numpy()``, ``.to("cpu")``
-* ``device_get(...)``, the port's explicit sync
+* ``device_get(...)``, the port's explicit sync, and ``device_put(...)``,
+  its blocking upload
 * ``torch.nonzero`` / ``.nonzero()``, ``torch.argwhere``, one-argument
   ``torch.where``, ``torch.unique`` / ``.unique()``,
   ``torch.masked_select`` / ``.masked_select()``, ``torch.bincount`` /
@@ -337,6 +338,8 @@ def _call_finding(call: ast.Call, host: Set[str]) -> str:
     d = dotted(func)
     if d.rsplit(".", 1)[-1] == "device_get":
         return "explicit host sync `device_get()`"
+    if d.rsplit(".", 1)[-1] == "device_put":
+        return "blocking host-to-device copy `device_put()`"
     if d == "torch.cuda.synchronize":
         return "`torch.cuda.synchronize()`"
     if d.startswith("torch.") and d[len("torch."):] in _SYNC_OPS:

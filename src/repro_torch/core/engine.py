@@ -38,7 +38,8 @@ from typing import Deque, Dict, List, NamedTuple, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
-from ..device import DeviceLike, device_get
+from .. import obs
+from ..device import DeviceLike, device_get, device_put
 from .automaton import DFA
 from .executor import (
     BatchedEngineArrays,
@@ -158,8 +159,9 @@ class PendingResults:
 
 def _nonzero(mat: torch.Tensor) -> np.ndarray:
     """Row-major indices of the True entries (as ``np.nonzero`` stacked),
-    found on the device so that only the indices cross to the host."""
-    return device_get(torch.nonzero(mat))
+    found on the device so that only the indices cross to the host: two
+    reads, the count and the copy, one span ``sync.decode``."""
+    return device_get(mat, "decode", torch.nonzero)
 
 
 class BatchedDenseRPQEngine:
@@ -298,7 +300,9 @@ class BatchedDenseRPQEngine:
 
     def _rebuild_tables(self) -> None:
         """Recompute the flattened transition table and per-lane metadata
-        from the lane list. K and max_window never shrink."""
+        from the lane list. K and max_window never shrink. The span
+        ``engine.tables``; each upload is ``sync.tables``."""
+        t0 = obs.on and obs.now()
         dfas = [s.dfa if s is not None else _INERT_DFA for s in self.lane_specs]
         self.btt = BatchedTransitionTable.from_dfas(
             dfas, self.labels, k_min=self.k, device=self.device)
@@ -326,7 +330,7 @@ class BatchedDenseRPQEngine:
         self._windows_np = windows
 
         def put(x):
-            return torch.as_tensor(x).to(self.device)
+            return device_put(x, self.device, "tables")
 
         self.finals_mask = put(fm)
         self.not_contained = put(nc)
@@ -338,6 +342,8 @@ class BatchedDenseRPQEngine:
             self.btt, self.finals_mask, self.windows, self.live_mask,
             int(live.sum()), float(self.max_window), live,
         )
+        if t0:
+            obs.add("engine.tables", t0)
 
     def _repad_arrays(self) -> None:
         self.executor.grow(
@@ -354,12 +360,15 @@ class BatchedDenseRPQEngine:
         flags = np.zeros((self.q_cap,), bool)
         if lanes.size == 0:
             return flags
+        t0 = obs.on and obs.now()
         self.host_reads += 1
-        sel = torch.as_tensor(lanes).to(self.device)
+        sel = device_put(lanes, self.device, "probe_lanes", torch.int64)
         low = self.executor.now - self.windows.index_select(0, sel)
         flags[lanes] = device_get(_conflict_possible(
             self.executor.lane_dist(lanes),
-            self.not_contained.index_select(0, sel), low))
+            self.not_contained.index_select(0, sel), low), "probe")
+        if t0:
+            obs.add("engine.probe", t0)
         return flags
 
     # -- query lifecycle -----------------------------------------------------
@@ -473,6 +482,7 @@ class BatchedDenseRPQEngine:
         return pending
 
     def _ingest_chunk(self, edges, pending: PendingResults) -> None:
+        t0 = obs.on and obs.now()
         B = self.batch_size
         src = np.zeros((B,), np.int64)
         dst = np.zeros((B,), np.int64)
@@ -499,6 +509,8 @@ class BatchedDenseRPQEngine:
                 mask[j] = True
                 j += 1
             self._host_now = max(self._host_now, chunk_now)
+            if t0:
+                obs.add("engine.intern", t0)
             if j == 0:
                 self.executor.advance_clock(chunk_now)
                 return
@@ -513,7 +525,10 @@ class BatchedDenseRPQEngine:
                 self.per_query_conflicted[int(qi)] = True
         # decode deferred: snapshot the interner so later slot recycling
         # cannot remap this chunk's pairs
+        t0 = obs.on and obs.now()
         pending._add(new, list(self.vertex_of), self._host_now)
+        if t0:
+            obs.add("engine.intern", t0)
 
     def _drain_pending(self, upto: Optional[PendingResults] = None) -> None:
         while self._pending_fifo:
@@ -541,6 +556,7 @@ class BatchedDenseRPQEngine:
         return out
 
     def _delete_chunk(self, edges, out: List[Set[Pair]]) -> None:
+        t0 = obs.on and obs.now()
         B = self.batch_size
         src = np.zeros((B,), np.int64)
         dst = np.zeros((B,), np.int64)
@@ -558,6 +574,8 @@ class BatchedDenseRPQEngine:
             lab[j] = li
             mask[j] = True
             j += 1
+        if t0:
+            obs.add("engine.intern", t0)
         if j == 0:
             self.executor.advance_clock(chunk_now)
             return
@@ -566,7 +584,10 @@ class BatchedDenseRPQEngine:
         live = [qi for qi, _spec in self.live_items()]
         if not live:
             return
-        idx = _nonzero(invalidated[live])
+        t0 = obs.on and obs.now()
+        # the lane list goes up in a blocking copy: inside the read
+        idx = device_get(invalidated, "decode",
+                         lambda m: torch.nonzero(m[live]))
         self.host_reads += 1
         for row, x, v in idx.tolist():
             qi = live[row]
@@ -575,6 +596,8 @@ class BatchedDenseRPQEngine:
             xv, vv = self.vertex_of[x], self.vertex_of[v]
             if xv is not None and vv is not None:
                 out[qi].add((xv, vv))
+        if t0:
+            obs.add("engine.decode", t0)
 
     def expire(self, tau: Optional[float] = None) -> None:
         """Slide-boundary maintenance: adjacency masking + slot recycling."""
@@ -587,23 +610,26 @@ class BatchedDenseRPQEngine:
         self.expire()
 
     def _recycle(self, live: np.ndarray) -> None:
+        t0 = obs.on and obs.now()
         dead_slots = [
             s for s, vtx in enumerate(self.vertex_of)
             if vtx is not None and not bool(live[s])
             and s not in self._chunk_pinned
         ]
-        if not dead_slots:
-            return
-        self.executor.clear_slots(dead_slots)
-        for s in dead_slots:
-            vtx = self.vertex_of[s]
-            self.vertex_of[s] = None
-            del self.slot_of[vtx]
-            self.free.append(s)
+        if dead_slots:
+            self.executor.clear_slots(dead_slots)
+            for s in dead_slots:
+                vtx = self.vertex_of[s]
+                self.vertex_of[s] = None
+                del self.slot_of[vtx]
+                self.free.append(s)
+        if t0:
+            obs.add("engine.recycle", t0)
 
     # -- result decoding ------------------------------------------------------
 
     def _decode_pairs(self, mat: torch.Tensor, simple: bool) -> Set[Pair]:
+        t0 = obs.on and obs.now()
         pairs: Set[Pair] = set()
         self.host_reads += 1
         for x, v in _nonzero(mat).tolist():
@@ -613,6 +639,8 @@ class BatchedDenseRPQEngine:
             vv = self.vertex_of[v]
             if xv is not None and vv is not None:
                 pairs.add((xv, vv))
+        if t0:
+            obs.add("engine.decode", t0)
         return pairs
 
     def _decode_new_into(
@@ -625,6 +653,7 @@ class BatchedDenseRPQEngine:
         """Merge per-lane pairs NEW to the monotone result set into
         ``fresh`` (the host-side sets are the source of truth: after slot
         recycling the device diff may resurface reported pairs)."""
+        t0 = obs.on and obs.now()
         self.host_reads += 1
         for q, x, v in _nonzero(arr).tolist():
             if self._simple[q] and x == v:
@@ -638,6 +667,8 @@ class BatchedDenseRPQEngine:
                 self.per_query_results[q].add(p)
                 self.per_query_log[q].append((t, p))
                 fresh[q].add(p)
+        if t0:
+            obs.add("engine.decode", t0)
 
     def current_results(self, qi: int = 0) -> Set[Pair]:
         """Snapshot view (explicit-window semantics) for lane ``qi``."""
@@ -649,7 +680,9 @@ class BatchedDenseRPQEngine:
         in timestamp order."""
         adj = self.executor.dense_adj()
         idx = _nonzero(adj > NEG_INF)
-        vals = device_get(adj[tuple(torch.as_tensor(idx.T).to(self.device))]) \
+        # the indices go up in a blocking copy: inside the read
+        vals = device_get(adj, "decode", lambda a: a[tuple(
+            torch.as_tensor(idx.T).to(self.device))]) \
             if idx.size else np.zeros((0,), np.float32)
         out: List[Tuple[object, object, str, float]] = []
         for (l, u, v), ts in zip(idx.tolist(), vals.tolist()):

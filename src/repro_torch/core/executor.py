@@ -45,7 +45,8 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..device import DeviceLike, device_get, resolve_device
+from .. import obs
+from ..device import DeviceLike, device_get, device_put, resolve_device
 from .contraction import Backend, BackendLike, resolve_backend
 from .semiring import (
     NEG_INF,
@@ -181,6 +182,7 @@ def apply_batch(arrays: BatchedEngineArrays, src, dst, lab, ts, mask,
     A batch may hold one (label, src, dst) twice, and masked rows carry
     -inf: a scatter with ``amax`` keeps the newest timestamp, where an
     accumulating ``index_put_`` would add them."""
+    t0 = obs.on and obs.now()
     eff_ts = torch.where(mask, ts, torch.full_like(ts, NEG_INF))
     adj = arrays.adj
     if isinstance(adj, EllAdjacency):
@@ -191,6 +193,8 @@ def apply_batch(arrays: BatchedEngineArrays, src, dst, lab, ts, mask,
         flat = (lab * n + src) * n + dst
         adj.view(-1).scatter_reduce_(0, flat, eff_ts, "amax", include_self=True)
     now = torch.maximum(arrays.now, torch.maximum(eff_ts.max(), ts_floor))
+    if t0:
+        obs.add("executor.fold", t0)
     return adj, now
 
 
@@ -199,16 +203,20 @@ def drop_batch(arrays: BatchedEngineArrays, src, dst, lab, mask,
     """The delete dispatch prologue: clear the masked batch's adjacency
     entries (in place for a dense ``adj``; every stored copy, row slots
     and ring, for an ELL one). Returns the retained adjacency."""
+    t0 = obs.on and obs.now()
     adj = arrays.adj
     if isinstance(adj, EllAdjacency):
         h = host or HostBatch(src, dst, lab, mask)
-        return ell_delete(adj, h.src, h.dst, h.lab, h.mask)
-    _, n, _ = adj.shape
-    flat = (lab * n + src) * n + dst
-    # masked rows fold +inf, which min leaves as it was: no boolean index,
-    # whose nonzero would read the row count on the host
-    clear = torch.where(mask, NEG_INF, float("inf"))
-    adj.view(-1).scatter_reduce_(0, flat, clear, "amin", include_self=True)
+        adj = ell_delete(adj, h.src, h.dst, h.lab, h.mask)
+    else:
+        _, n, _ = adj.shape
+        flat = (lab * n + src) * n + dst
+        # masked rows fold +inf, which min leaves as it was: no boolean
+        # index, whose nonzero would read the row count on the host
+        clear = torch.where(mask, NEG_INF, float("inf"))
+        adj.view(-1).scatter_reduce_(0, flat, clear, "amin", include_self=True)
+    if t0:
+        obs.add("executor.fold", t0)
     return adj
 
 
@@ -217,10 +225,13 @@ def emit_new(arrays: BatchedEngineArrays, dist, adj, now, finals_mask,
     """The ingest dispatch epilogue: per-query window validity at the new
     clock, diffed against the emitted pairs (``emitted`` is updated in
     place). Returns ``(new_arrays, new)``."""
+    t0 = obs.on and obs.now()
     low = now - windows
     valid = batched_valid_pairs(dist, finals_mask, low)
     new = valid & ~arrays.emitted
     emitted = arrays.emitted.logical_or_(valid)
+    if t0:
+        obs.add("executor.emit", t0)
     return BatchedEngineArrays(adj, dist, emitted, now), new
 
 
@@ -253,6 +264,27 @@ def _ingest_frontier(arrays: BatchedEngineArrays, src, dst, lab, ts, mask,
     return out, new, rounds, qrounds, fstats, syncs
 
 
+def _valid_before(arrays: BatchedEngineArrays, ts_now, finals_mask, windows):
+    """The delete dispatch's clock, thresholds and validity before the
+    delete: ``(now, low, valid_before)``."""
+    t0 = obs.on and obs.now()
+    now = torch.maximum(arrays.now, ts_now)
+    low = now - windows
+    valid_before = batched_valid_pairs(arrays.dist, finals_mask, low)
+    if t0:
+        obs.add("executor.emit", t0)
+    return now, low, valid_before
+
+
+def _invalidated(dist, finals_mask, low, valid_before) -> torch.Tensor:
+    """The pairs valid before the delete and not after it."""
+    t0 = obs.on and obs.now()
+    invalidated = valid_before & ~batched_valid_pairs(dist, finals_mask, low)
+    if t0:
+        obs.add("executor.emit", t0)
+    return invalidated
+
+
 def _delete(arrays: BatchedEngineArrays, src, dst, lab, mask, ts_now,
             btt: BatchedTransitionTable, finals_mask, windows, live_mask,
             w_max, backend: BackendLike = None,
@@ -260,9 +292,7 @@ def _delete(arrays: BatchedEngineArrays, src, dst, lab, mask, ts_now,
     """Explicit deletion (negative tuple): clear adjacency entries and
     recompute every query's closure from scratch. Returns
     ``(arrays, invalidated, rounds, query_rounds, host_syncs)``."""
-    now = torch.maximum(arrays.now, ts_now)
-    low = now - windows
-    valid_before = batched_valid_pairs(arrays.dist, finals_mask, low)
+    now, low, valid_before = _valid_before(arrays, ts_now, finals_mask, windows)
     adj = drop_batch(arrays, src, dst, lab, mask, host)
     if isinstance(arrays.dist, RowSparseDist):
         dist0 = rsd_empty_like(arrays.dist)
@@ -270,8 +300,7 @@ def _delete(arrays: BatchedEngineArrays, src, dst, lab, mask, ts_now,
         dist0 = arrays.dist.fill_(NEG_INF)  # from scratch, in place
     dist, rounds, qrounds, syncs = _closure(
         dist0, adj, btt, backend, 0, live_mask, now, w_max)
-    valid_after = batched_valid_pairs(dist, finals_mask, low)
-    invalidated = valid_before & ~valid_after
+    invalidated = _invalidated(dist, finals_mask, low, valid_before)
     return (BatchedEngineArrays(adj, dist, arrays.emitted, now),
             invalidated, rounds, qrounds, syncs)
 
@@ -285,15 +314,12 @@ def _delete_frontier(arrays: BatchedEngineArrays, src, dst, lab, mask,
     pre-delete state) cleared and re-derived; cone overflow falls back to
     the dense from-scratch loop. Returns ``(arrays, invalidated, rounds,
     query_rounds, frontier_stats, host_syncs)``."""
-    now = torch.maximum(arrays.now, ts_now)
-    low = now - windows
-    valid_before = batched_valid_pairs(arrays.dist, finals_mask, low)
+    now, low, valid_before = _valid_before(arrays, ts_now, finals_mask, windows)
     adj = drop_batch(arrays, src, dst, lab, mask, host)
     dist, rounds, qrounds, fstats, syncs = _frontier(
         arrays.dist, adj, btt, backend, src, mask, f_cap, live_mask, 0,
         now, w_max, delete=True)
-    valid_after = batched_valid_pairs(dist, finals_mask, low)
-    invalidated = valid_before & ~valid_after
+    invalidated = _invalidated(dist, finals_mask, low, valid_before)
     return (BatchedEngineArrays(adj, dist, arrays.emitted, now),
             invalidated, rounds, qrounds, fstats, syncs)
 
@@ -546,7 +572,7 @@ class Executor:
     def lane_dist(self, lanes: Sequence[int]) -> torch.Tensor:
         """The dense dist of the given lanes, ``(len(lanes), N, N, K)``
         (the engine's conflict probe)."""
-        sel = torch.as_tensor(np.asarray(lanes, np.int64)).to(self.device)
+        sel = device_put(lanes, self.device, "probe_lanes", torch.int64)
         return self.dense_dist().index_select(0, sel)
 
     @property
@@ -600,8 +626,12 @@ class Executor:
     # -- dispatches ----------------------------------------------------------
 
     def _batch(self, *arrays):
-        return [torch.as_tensor(np.asarray(x)).to(self.device, non_blocking=True)
-                for x in arrays]
+        t0 = obs.on and obs.now()
+        out = [torch.as_tensor(np.asarray(x)).to(self.device, non_blocking=True)
+               for x in arrays]
+        if t0:
+            obs.add("executor.upload", t0)
+        return out
 
     def ingest_batch(self, src, dst, lab, ts, mask, ts_floor: float,
                      tables: QueryTables) -> torch.Tensor:
@@ -609,6 +639,7 @@ class Executor:
         per-query NEW-validity matrix (Q, N, N) as a device tensor. With
         ``frontier != "off"`` the closure is frontier-restricted (dense
         fallback on overflow; results are bit-identical either way)."""
+        t0 = obs.on and obs.now()
         if self.adj_layout == "ell":
             self._reserve_spill(len(src))
         if self.dist_layout == "row_sparse":
@@ -630,6 +661,8 @@ class Executor:
                 *args, backend=self.backend, host=host)
         self._account(rounds, qrounds, tables, syncs, fstats)
         self.steps += 1
+        if t0:
+            obs.add("executor.dispatch", t0)
         return new
 
     def delete_batch(self, src, dst, lab, mask, ts_now: float,
@@ -637,6 +670,7 @@ class Executor:
         """Explicit deletion dispatch; returns the invalidated pairs
         (Q, N, N) as a device tensor. With ``frontier != "off"`` only the
         deleted edges' cone is cleared and re-derived."""
+        t0 = obs.on and obs.now()
         if self.dist_layout == "row_sparse":
             self._reserve_dist(self.frontier != "off")
         host = HostBatch(np.asarray(src, np.int64), np.asarray(dst, np.int64),
@@ -657,6 +691,8 @@ class Executor:
                 *args, backend=self.backend, host=host)
         self._account(rounds, qrounds, tables, syncs, fstats, is_delete=True)
         self.steps += 1
+        if t0:
+            obs.add("executor.dispatch", t0)
         return invalidated
 
     def relax(self, tables: QueryTables,
@@ -664,6 +700,7 @@ class Executor:
         """Run the batched closure to fixpoint in place (lane seeding at
         registration, or any re-derivation); always the dense loop (a
         row-sparse dist takes the densify round trip)."""
+        t0 = obs.on and obs.now()
         if self.dist_layout == "row_sparse":
             self._reserve_dist(False)
         a = self._arrays
@@ -674,6 +711,8 @@ class Executor:
             _f32(tables.max_window, self.device))
         self._arrays = a._replace(dist=dist)
         self._account(rounds, qrounds, tables, syncs)
+        if t0:
+            obs.add("executor.dispatch", t0)
 
     def emit(self, tables: QueryTables) -> torch.Tensor:
         """(Q, N, N) bool device tensor of pairs valid over each query's
@@ -683,12 +722,16 @@ class Executor:
                                    a.now - tables.windows)
 
     def expire(self, tau: float, max_window: float) -> np.ndarray:
+        t0 = obs.on and obs.now()
         self._arrays, live = _expire(self._arrays, _f32(tau, self.device),
                                      _f32(max_window, self.device))
-        return device_get(live)
+        live = device_get(live, "expire")
+        if t0:
+            obs.add("executor.expire", t0)
+        return live
 
     def clear_slots(self, slots: Sequence[int]) -> None:
-        idx = torch.as_tensor(list(slots), dtype=torch.int64).to(self.device)
+        idx = device_put(list(slots), self.device, "slots", torch.int64)
         self._arrays = _clear_slots(self._arrays, idx)
 
     def clear_lane(self, lane: int) -> None:
@@ -717,6 +760,7 @@ class Executor:
     # per-event path: streams without degree growth never pay them.
 
     def _reserve_spill(self, b: int) -> None:
+        t0 = obs.on and obs.now()
         bneed = _next_pow2(2 * max(b, 1))
         grew = False
         while self.spill_cap < bneed:
@@ -727,12 +771,14 @@ class Executor:
         elif self._spill_budget + b > self.spill_cap:
             self._drain_spill()
         self._spill_budget += b
+        if t0:
+            obs.add("executor.spill", t0)
 
     def _drain_spill(self) -> None:
         self._ell_spill_drains += 1
-        ptr = int(device_get(self._arrays.adj.spill_ptr))
+        ptr = int(device_get(self._arrays.adj.spill_ptr, "spill"))
         if ptr > 0:
-            need = int(device_get(ell_max_degree(self._arrays.adj)))
+            need = int(device_get(ell_max_degree(self._arrays.adj), "spill"))
             while self.ell_cap < need:
                 self.ell_cap *= 2
             self._repack_ell()
@@ -749,15 +795,20 @@ class Executor:
 
     def _repack(self, ell: EllAdjacency) -> EllAdjacency:
         """:func:`pack_ell_dense` of ``ell``'s canonical slab, from its
-        live entries (no (L, N, N) slab)."""
+        live entries (no (L, N, N) slab): the span ``executor.repack``
+        around its three reads, each ``sync.repack``."""
+        t0 = obs.on and obs.now()
         keys, ts = ell_live_entries(ell)
         need = ell_entries_degree(keys, ell.n_labels, ell.n_slots)
         while self.ell_cap < need:
             self.ell_cap *= 2
         self._spill_budget = 0
         self._ell_live_edges = int(keys.numel())
-        return pack_ell_entries(keys, ts, ell.n_labels, ell.n_slots,
-                                self.ell_cap, self.spill_cap)
+        out = pack_ell_entries(keys, ts, ell.n_labels, ell.n_slots,
+                               self.ell_cap, self.spill_cap)
+        if t0:
+            obs.add("executor.repack", t0)
+        return out
 
     @property
     def adjacency_stats(self) -> Dict[str, object]:
@@ -798,21 +849,24 @@ class Executor:
     # are counted (``dist_stats["lost"]``), never silent.
 
     def _reserve_dist(self, frontier: bool) -> None:
+        t0 = obs.on and obs.now()
         q, n = self.dist_shape[0], self.dist_shape[1]
         w = q * min(self.frontier_cap, n) if frontier else q * n
         w = min(w, self.dist_ovf_cap)
         if self._dist_budget + w > self.dist_ovf_cap:
             self._drain_dist()
         self._dist_budget += w
+        if t0:
+            obs.add("executor.spill", t0)
 
     def _drain_dist(self) -> None:
         self._dist_drains += 1
         d = self._arrays.dist
-        ptr, lost = (int(x) for x in device_get(torch.stack([d.ovf_ptr,
-                                                             d.lost])))
+        ptr, lost = (int(x) for x in device_get(
+            torch.stack([d.ovf_ptr, d.lost]), "drain"))
         self._dist_lost = lost
         if ptr > 0:
-            need = int(device_get(rsd_row_counts(d).max()))
+            need = int(device_get(rsd_row_counts(d).max(), "drain"))
             while self.dist_cap < need:
                 self.dist_cap *= 2
             self._repack_dist()
@@ -826,7 +880,7 @@ class Executor:
         sd = rsd_grow_repack(self._arrays.dist, self.dist_cap, self.dist_ovf_cap)
         self._arrays = self._arrays._replace(dist=sd)
         self._dist_repacks += 1
-        self._dist_live_entries = int(device_get(rsd_live_entries(sd)))
+        self._dist_live_entries = int(device_get(rsd_live_entries(sd), "drain"))
         self._dist_budget = 0
 
     @property
@@ -883,17 +937,20 @@ class Executor:
             self._ell_contractions_total += rounds * per_round
 
     def _flush_counts(self) -> None:
+        t0 = obs.on and self._pending_counts and obs.now()
         for rounds, qrounds, n_live, fstats, n, is_delete in \
                 self._pending_counts:
             self._consume_count(rounds, qrounds, n_live)
             self._consume_frontier(fstats, rounds, n_live, n, is_delete)
         self._pending_counts.clear()
         self._maybe_grow_frontier()
+        if t0:
+            obs.add("executor.flush", t0)
 
     def _consume_count(self, rounds: int, qrounds: torch.Tensor,
                        n_live: int) -> None:
         self._rounds_total += rounds
-        self._query_rounds_total += int(device_get(qrounds.sum()))
+        self._query_rounds_total += int(device_get(qrounds.sum(), "count"))
         self._unmasked_query_rounds_total += n_live * rounds
 
     def _consume_frontier(self, fstats, rounds: int, n_live: int, n: int,

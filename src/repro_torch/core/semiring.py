@@ -35,7 +35,8 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..device import DeviceLike, device_get, resolve_device
+from .. import obs
+from ..device import DeviceLike, device_get, device_put, resolve_device
 from .contraction import Backend, BackendLike, resolve_backend
 from .sparse_adj import EllAdjacency, ell_rows_dense
 from .sparse_dist import (
@@ -90,7 +91,7 @@ class TransitionTable(NamedTuple):
         dev = resolve_device(device)
 
         def t(x, dtype=torch.int64):
-            return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+            return device_put(x, dev, "tables", dtype)
 
         trans = dfa.transitions()
         if not trans:
@@ -237,7 +238,7 @@ class BatchedTransitionTable(NamedTuple):
         start_np = np.array(start, bool)
 
         def t(x, dtype=torch.int64):
-            return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+            return device_put(x, dev, "tables", dtype)
 
         return BatchedTransitionTable(
             qidx=t(qidx), src=t(src), lab=t(lab), dst=t(dst),
@@ -421,15 +422,21 @@ def _masked_closure_loop(
     the loop makes exactly ``rounds`` host syncs. Returns
     ``(dist, rounds, query_rounds, host_syncs)``; ``rounds`` is a Python
     int, ``query_rounds`` a (Q,) int32 device tensor."""
+    t0 = obs.on and obs.now()
     changed = _relax_in_place(dist_op, adj_op, btt, backend, mask0)
+    if t0:
+        obs.add("executor.round", t0)
     query_rounds = mask0.to(torch.int32)
     rounds, syncs = 1, 0
     while True:
         syncs += 1
-        if not bool(changed.any()) or rounds >= bound:  # repro: noqa[R1] the fixpoint loop's one read a round (the reference's lax.while_loop), counted in host_syncs
+        if not device_get(changed.any(), "closure") or rounds >= bound:  # repro: noqa[R1] the fixpoint loop's one read a round (the reference's lax.while_loop), counted in host_syncs
             break
         mask = changed
+        t0 = obs.on and obs.now()
         changed = _relax_in_place(dist_op, adj_op, btt, backend, mask)
+        if t0:
+            obs.add("executor.round", t0)
         query_rounds += mask
         rounds += 1
     return dist_op, rounds, query_rounds, syncs
@@ -669,12 +676,15 @@ def _frontier_loop(state, step, rowmask0, n_active: int, bound: int):
     rm = rowmask0
     rounds = rows_relaxed = syncs = 0
     while n_active > 0 and rounds < bound:
+        t0 = obs.on and obs.now()
         qrounds += rm.any(dim=1).to(torch.int32)
         state, rm = step(state, rm)
+        if t0:
+            obs.add("executor.round", t0)
         rows_relaxed += n_active
         rounds += 1
         if rounds < bound:
-            n_active = int(device_get(rm.sum()))  # repro: noqa[R1] the frontier loop's changed-row count, one read a round (lax.while_loop), counted in host_syncs
+            n_active = int(device_get(rm.sum(), "frontier"))  # repro: noqa[R1] the frontier loop's changed-row count, one read a round (lax.while_loop), counted in host_syncs
             syncs += 1
     return state, rounds, qrounds, rows_relaxed, syncs
 
@@ -695,6 +705,7 @@ def _frontier(dist, adj, btt, backend, src, smask, f_cap, query_mask,
     # mask either way, so the overflow decision is layout-independent
     seed_fn = (frontier_seed_gathered if isinstance(adj, EllAdjacency)
                else frontier_seed)
+    t0 = obs.on and obs.now()
     dirty = seed_fn(dist, src, smask, mask0)
     rows, rowmask0, cnt_h, live_lanes, overflow = _plan(dirty, f_cap, mask0)
     syncs = 1
@@ -704,6 +715,8 @@ def _frontier(dist, adj, btt, backend, src, smask, f_cap, query_mask,
             dist.fill_(NEG_INF)
         else:
             dist.masked_fill_(dirty[:, :, None, None], NEG_INF)
+    if t0:
+        obs.add("executor.plan", t0)
     dist_op, adj_op = backend.prepare_state(dist, adj, now, w_max)
     if overflow:
         dist_f, rounds, qrounds, loop_syncs = _masked_closure_loop(
@@ -729,7 +742,7 @@ def _plan(dirty: torch.Tensor, f_cap: int, mask0: torch.Tensor):
     Returns ``(rows, rowmask0, counts (host), live_lanes, overflow)``."""
     q = dirty.shape[0]
     rows, rowmask0, cnt = pack_frontier(dirty, f_cap)
-    host = device_get(torch.cat([cnt.to(torch.int64), mask0.sum().reshape(1)]))  # repro: noqa[R1] the fallback decision (the reference's lax.cond), one read a dispatch, counted in host_syncs
+    host = device_get(torch.cat([cnt.to(torch.int64), mask0.sum().reshape(1)]), "plan")  # repro: noqa[R1] the fallback decision (the reference's lax.cond), one read a dispatch, counted in host_syncs
     cnt_h = host[:q]
     return rows, rowmask0, cnt_h, int(host[q]), bool((cnt_h > f_cap).any())
 
@@ -762,8 +775,11 @@ def _rowsparse_frontier(sd: RowSparseDist, adj, btt, backend, src, smask,
     dev = sd.ts.device
     mask0 = (torch.ones((q,), dtype=torch.bool, device=dev)
              if query_mask is None else query_mask.to(torch.bool))
+    t0 = obs.on and obs.now()
     dirty = rsd_seed_gathered(sd, src, smask, mask0)
     rows, rowmask0, cnt_h, live_lanes, overflow = _plan(dirty, f_cap, mask0)
+    if t0:
+        obs.add("executor.plan", t0)
     syncs = 1
     _, adj_op = backend.prepare_state(None, adj, now, w_max)
     if overflow:

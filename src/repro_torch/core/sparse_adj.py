@@ -33,6 +33,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import device_get
+
 NEG_INF = float("-inf")
 
 
@@ -195,7 +197,8 @@ def ell_live_entries(ell: EllAdjacency):
     the ascending flattened ``(l * N + u) * N + v`` keys of every edge with
     a live copy (row slot or ring) and each one's max timestamp, the
     entries of ``ell_to_dense(ell) > -inf`` in row-major order. Reads the
-    live count to the host (a re-pack path)."""
+    count of live edges to the host (a re-pack path): one read,
+    ``sync.repack``."""
     n_labels, n_slots, e_cap = ell.idx.shape
     dev = ell.idx.device
     rows = torch.arange(n_labels * n_slots, device=dev)
@@ -204,21 +207,38 @@ def ell_live_entries(ell: EllAdjacency):
         (ell.spill_lab.long() * n_slots + ell.spill_src.long()) * n_slots
         + ell.spill_dst.long()])
     ts = torch.cat([ell.ts.reshape(-1), ell.spill_ts])
-    live = ts > NEG_INF
-    keys, ts = keys[live], ts[live]
-    uniq, inv = torch.unique(keys, sorted=True, return_inverse=True)
-    best = torch.full(uniq.shape, NEG_INF, dtype=ts.dtype, device=dev)
-    return uniq, best.scatter_reduce_(0, inv, ts, "amax", include_self=True)
+    # dead copies take a key past every live one, so the live edges lead
+    # the sorted keys and fill groups 0..n-1 of equal keys: no size read
+    # but the count n itself
+    dead = n_labels * n_slots * n_slots
+    keys, order = torch.sort(torch.where(ts > NEG_INF, keys, dead))
+    ts = ts[order]
+    first = torch.ones_like(keys, dtype=torch.bool)
+    first[1:] = keys[1:] != keys[:-1]
+    group = torch.cumsum(first, 0) - 1
+    n = int(device_get((first & (keys < dead)).sum(), "repack"))
+    uniq = torch.zeros((n + 1,), dtype=keys.dtype, device=dev).scatter_(
+        0, group, keys)
+    best = torch.full((n + 1,), NEG_INF, dtype=ts.dtype, device=dev)
+    best.scatter_reduce_(0, group, ts, "amax", include_self=True)
+    return uniq[:n], best[:n]
+
+
+def _row_counts(row: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """Entries a row (``bincount`` with ``minlength=n_rows``, whose CUDA
+    version reads the input's max to the host)."""
+    return torch.zeros((n_rows,), dtype=torch.int64, device=row.device
+                       ).scatter_add_(0, row, torch.ones_like(row))
 
 
 def ell_entries_degree(keys: torch.Tensor, n_labels: int,
                        n_slots: int) -> int:
     """Max out-degree over ``(label, u)`` rows of :func:`ell_live_entries`'
-    keys (a host read)."""
+    keys (a host read, ``sync.repack``)."""
     if not keys.numel():
         return 0
-    return int(torch.bincount(keys // n_slots,
-                              minlength=n_labels * n_slots).max())
+    deg = _row_counts(keys // n_slots, n_labels * n_slots)
+    return int(device_get(deg.max(), "repack"))
 
 
 def pack_ell_entries(keys: torch.Tensor, ts: torch.Tensor, n_labels: int,
@@ -227,7 +247,8 @@ def pack_ell_entries(keys: torch.Tensor, ts: torch.Tensor, n_labels: int,
     """:func:`pack_ell_dense` of the slab whose live entries are ``keys``
     and ``ts`` (:func:`ell_live_entries`): the same slots in the same
     order, the ring empty, from O(L*N*E + S) entries instead of the
-    (L, N, N) slab."""
+    (L, N, N) slab. Checks the slots against ``ell_cap`` in one host
+    read, ``sync.repack``."""
     dev = ts.device
     idx = torch.zeros((n_labels * n_slots, ell_cap), dtype=torch.int32,
                       device=dev)
@@ -235,10 +256,10 @@ def pack_ell_entries(keys: torch.Tensor, ts: torch.Tensor, n_labels: int,
                         dtype=torch.float32, device=dev)
     if keys.numel():
         row = keys // n_slots
-        deg = torch.bincount(row, minlength=n_labels * n_slots)
+        deg = _row_counts(row, n_labels * n_slots)
         pos = torch.arange(keys.shape[0], device=dev) - (torch.cumsum(deg, 0)
                                                          - deg)[row]
-        top = int(pos.max())
+        top = int(device_get(pos.max(), "repack"))
         if top >= ell_cap:
             raise ValueError(
                 f"pack_ell: max out-degree {top + 1} exceeds "

@@ -246,7 +246,7 @@ def rsd_pack_rows(flats: Sequence[torch.Tensor], dist_cap: int, ovf_cap: int,
     fitting entries."""
     counts = [torch.stack([(f[lane] > NEG_INF).sum(dim=1)
                            for lane in range(f.shape[0])]) for f in flats]
-    counts_h = device_get(torch.cat([c.to(home) for c in counts]))  # repro: noqa[R1] the re-pack's row counts, one read (the reference packs inside jit), counted in host_syncs
+    counts_h = device_get(torch.cat([c.to(home) for c in counts]), "repack")  # repro: noqa[R1] the re-pack's row counts, one read (the reference packs inside jit), counted in host_syncs
     reads = 1
     n, e = flats[0].shape[1], flats[0].shape[2]
     idx, ts = [], []

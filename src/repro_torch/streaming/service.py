@@ -59,6 +59,7 @@ from typing import Deque, Dict, List, Optional, Set, Tuple, Union
 
 import numpy as np
 
+from .. import obs
 from ..core.automaton import compile_query
 from ..core.contraction import resolve_backend
 from ..core.engine import BatchedDenseRPQEngine, PendingResults, RegisteredQuery
@@ -73,9 +74,13 @@ class QueryStats:
     tuples: int = 0
     results: int = 0
     conflicted: bool = False
-    wall_s: float = 0.0
-    p99_us: float = 0.0
     latencies_us: Optional[List[float]] = None
+
+    @property
+    def p99_us(self) -> float:
+        """The 99th percentile of :attr:`latencies_us` (0.0 before any)."""
+        lat = sorted(self.latencies_us or ())
+        return lat[min(int(0.99 * len(lat)), len(lat) - 1)] if lat else 0.0
 
 
 class IngestReport(Dict[str, Set[Tuple]]):
@@ -385,6 +390,7 @@ class PersistentQueryService:
                 continue
             if not self._group.per_query_conflicted[qi]:
                 continue
+            t0 = obs.on and obs.now()
             resolve_cb()  # settle deferred decodes before mutating lanes
             name = spec.name
             fb = RSPQFallback(spec.dfa, spec.window,
@@ -396,6 +402,8 @@ class PersistentQueryService:
             fallbacks[name] = "conflict -> reference RSPQ"
             if name in self.stats:
                 self.stats[name].conflicted = True
+            if t0:
+                obs.add("service.fallback", t0)
 
     def ingest(self, stream, record_latency: bool = False) -> IngestReport:
         """Feed the whole stream; returns an :class:`IngestReport`.
@@ -404,7 +412,22 @@ class PersistentQueryService:
         whose size doubles (up to ``max_batch``) when the interval's no-op
         relaxation tail is large and halves when it is small, read from
         the executor's round counters at each slide boundary; decisions
-        land in :attr:`batch_size_log`."""
+        land in :attr:`batch_size_log`.
+
+        ``record_latency=True`` traces the call: each query's dispatch
+        times go to :attr:`stats` (``latencies_us``), and the layers'
+        spans, the call itself as ``service.ingest``, to
+        :data:`repro_torch.obs.RECORDER`."""
+        if not record_latency:
+            return self._ingest(stream, False)
+        with obs.recording():
+            t0 = obs.now()
+            try:
+                return self._ingest(stream, True)
+            finally:
+                obs.add("service.ingest", t0)
+
+    def _ingest(self, stream, record_latency: bool) -> IngestReport:
         self._ensure_group()
         self._ingest_started = True
         new_results: Dict[str, Set[Tuple]] = {name: set() for name in self.stats}
@@ -519,6 +542,7 @@ class PersistentQueryService:
                 flush_dense()
                 flush_deletes()
                 resolve_pending()
+                t0 = obs.on and obs.now()
                 if self._group is not None:
                     self._group.expire(sgt.ts)
                 for eng in self._ref_engines.values():
@@ -526,6 +550,8 @@ class PersistentQueryService:
                 while self._next_expiry <= sgt.ts:
                     self._next_expiry += self.slide
                 adapt_batch(mark_interval())
+                if t0:
+                    obs.add("service.expire", t0)
             # snapshot BEFORE the dense step: a fallback fired by this very
             # event must not re-feed the event to its new reference engine
             refs_this_event = list(self._ref_engines.items())
@@ -542,6 +568,7 @@ class PersistentQueryService:
                     if (not self._adaptive_batch
                             or len(del_buf) >= self._group.batch_size):
                         flush_deletes()
+            t1 = obs.on and refs_this_event and obs.now()
             for name, eng in refs_this_event:
                 t0 = time.perf_counter_ns() if record_latency else 0
                 if sgt.op == "+":
@@ -555,23 +582,26 @@ class PersistentQueryService:
                 st.tuples += 1
                 if record_latency:
                     st.latencies_us.append((time.perf_counter_ns() - t0) / 1e3)
+            if t1:
+                obs.add("service.reference", t1)
         flush_dense()
         flush_deletes()
         resolve_pending()
+        t0 = obs.on and obs.now()
         for name in self.stats:
             st = self.stats[name]
             if name in self._dense_specs or name in self._ref_engines:
                 st.results = len(self.results(name))
                 st.conflicted = st.conflicted or self._conflicted(name)
-            if st.latencies_us:
-                lat = sorted(st.latencies_us)
-                st.p99_us = lat[min(int(0.99 * len(lat)), len(lat) - 1)]
         fstats: Dict[str, object] = {}
         if call_mark and self._group is not None:
             fstats = self._stats_delta(
                 self._group.executor.frontier_stats, call_mark)
-        return IngestReport(new_results, invalidated, fallbacks, fstats,
-                            deletions=deletions[0])
+        report = IngestReport(new_results, invalidated, fallbacks, fstats,
+                              deletions=deletions[0])
+        if t0:
+            obs.add("service.tail", t0)
+        return report
 
     def results(self, name: str) -> Set[Tuple]:
         if name in self._dense_specs:
